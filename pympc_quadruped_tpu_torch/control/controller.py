@@ -1,0 +1,178 @@
+"""The full 1 kHz control tick, batch-first (port of ``control/controller.py``).
+
+Per tick: obs -> kinematics -> gait phase -> [every Nth tick: MPC solve ->
+GRFs] -> swing-foot targets -> Jacobian-transpose torques.  Every argument
+except ``mpc`` and ``tick`` carries a leading scenario axis.  The JAX
+batch-level ``lax.cond`` solve gate is a host ``if`` on the shared Python
+int ``tick``, so the solve really runs only on solve ticks.
+
+Only the sparse Riccati solver (``solver="riccati"``) is ported; the other
+solvers raise ``NotImplementedError`` naming the ROADMAP item they wait for.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+
+import torch
+
+from pympc_quadruped_tpu_torch.control import legctrl, refmpc, swing
+from pympc_quadruped_tpu_torch.models.command import Command
+from pympc_quadruped_tpu_torch.models.gaits import GaitParams
+from pympc_quadruped_tpu_torch.models.mpc import MpcParams
+from pympc_quadruped_tpu_torch.models.robots import RobotParams
+from pympc_quadruped_tpu_torch.ops import gaitsched, kin, srb
+from pympc_quadruped_tpu_torch.ops.qp import cones, riccati
+from pympc_quadruped_tpu_torch.tree import tree_map
+
+# The JAX package's default; not ported yet, so callers pass "riccati".
+DEFAULT_SOLVER = "admm_fast"
+
+_NOT_PORTED = {
+    "admm_fast": "the condensed path (ROADMAP Queue 1, item 8)",
+    "admm": "the condensed path (ROADMAP Queue 1, item 8)",
+    "ipm": "the parity solvers (ROADMAP Queue 1, item 9)",
+    "ipm_parity": "the parity solvers (ROADMAP Queue 1, item 9)",
+}
+
+
+def check_solver(solver: str) -> None:
+    if solver in _NOT_PORTED:
+        raise NotImplementedError(
+            f"solver={solver!r} is not ported yet: it waits for {_NOT_PORTED[solver]}"
+        )
+    if solver != "riccati":
+        raise ValueError(f"unknown solver {solver!r}")
+
+
+@dataclass
+class ControllerCarry:
+    mpc: refmpc.MpcCarry
+    swing: swing.SwingCarry
+
+
+@dataclass
+class ControllerOutput:
+    torques: torch.Tensor        # (12,)
+    contact_forces: torch.Tensor # (12,) world-frame GRFs currently held
+    swing_states: torch.Tensor   # (4,)
+    pos_targets: torch.Tensor    # (4,3) swing-foot targets rel. base, base frame
+    vel_targets: torch.Tensor    # (4,3)
+    kin: kin.KinState
+
+
+def init_carry(horizon: int = 10) -> ControllerCarry:
+    return ControllerCarry(mpc=refmpc.MpcCarry.init(horizon), swing=swing.SwingCarry.init())
+
+
+def _pre_solve(robot, mpc, gait, cmd, carry, obs, tick):
+    """Everything before the solve decision."""
+    ks = kin.compute_kin_state(robot, obs)
+    swing_states = gaitsched.swing_state(gait, mpc, tick)
+    table = gaitsched.gait_table(gait, mpc, tick)
+    g_slot = (-mpc.gravity).expand(ks.rpy_base.shape[:-1] + (1,))
+    x_t = torch.cat([ks.rpy_base, ks.pos_base, ks.ang_vel_base, ks.lin_vel_base,
+                     g_slot], dim=-1).float()
+    mpc_carry, vel_des_world = refmpc.integrate_desired(carry.mpc, ks, cmd, mpc)
+    return ks, swing_states, table, x_t, mpc_carry, vel_des_world
+
+
+def _solve_branch(robot, mpc, cmd, mpc_carry, ks, x_t, vel_des_world, table,
+                  riccati_cfg):
+    """Reference trajectory + batched Riccati solve; returns (carry', forces).
+
+    A scenario whose solution comes back non-finite keeps its previously
+    held GRFs (the reference's last solution stays applied), and its warm
+    start resets to zeros (a cold restart next solve)."""
+    ground_z = None
+    if mpc.ground_adaptive_height:
+        # Support-plane height from stance-foot leg odometry; flight steps
+        # fall back to the all-feet mean.
+        stance_now = table.reshape(-1, mpc.horizon, 4)[:, 0, :]
+        feet_z = ks.pos_feet[:, :, 2]
+        n_st = stance_now.sum(dim=-1)
+        ground_z = torch.where(
+            n_st > 0,
+            (stance_now * feet_z).sum(dim=-1) / torch.clamp(n_st, min=1.0),
+            feet_z.mean(dim=-1),
+        )
+    mpc_carry, X = refmpc.reference_trajectory(
+        mpc_carry, x_t, vel_des_world, cmd, mpc, robot, table, ground_z=ground_z
+    )
+
+    yaw = x_t[:, 2]
+    Ad, Bd = srb.discretize(*srb.state_space(robot, yaw, ks.pos_base_feet), mpc.dt_predict)
+    mv = cones.variable_mask(table, mpc)
+    # Receding-horizon warm start: shift by one step (12 variables, 20 cone
+    # rows); the trailing step repeats.
+    U_ws = torch.cat([mpc_carry.qp_primal[:, 12:], mpc_carry.qp_primal[:, -12:]], dim=-1)
+    lam_ws = torch.cat([mpc_carry.qp_dual[:, 20:], mpc_carry.qp_dual[:, -20:]], dim=-1)
+    U, lam = riccati.solve_batch(
+        Ad, Bd, x_t, X, table, robot.fz_max, mpc, riccati_cfg,
+        warm=(U_ws, lam_ws), return_duals=True,
+    )
+    ok_ws = (torch.isfinite(U).all(dim=-1, keepdim=True)
+             & torch.isfinite(lam).all(dim=-1, keepdim=True))
+    mpc_carry = dataclasses.replace(
+        mpc_carry,
+        qp_primal=torch.where(ok_ws, U * mv, torch.zeros_like(U)),
+        qp_dual=torch.where(ok_ws, lam, torch.zeros_like(lam)),
+    )
+    ok = torch.isfinite(U).all(dim=-1, keepdim=True)
+    forces = torch.where(ok, (U * mv)[:, :12], mpc_carry.contact_forces)
+    return dataclasses.replace(mpc_carry, contact_forces=forces), forces
+
+
+def step_batch(
+    robot: RobotParams,
+    mpc: MpcParams,
+    gait: GaitParams,
+    cmd: Command,
+    carry: ControllerCarry,
+    obs: kin.RobotObs,
+    tick: int,
+    solver: str = DEFAULT_SOLVER,
+    riccati_cfg: riccati.RiccatiConfig = riccati.RiccatiConfig.inloop(),
+):
+    """Batched tick.  ``tick`` is the shared Python-int tick counter.
+    Returns (carry', ControllerOutput) with leading scenario axes."""
+    check_solver(solver)
+    tick = int(tick)
+    ks, swing_states, table, x_t, mpc_carry, vel_des_world = _pre_solve(
+        robot, mpc, gait, cmd, carry, obs, tick
+    )
+    if tick % mpc.iterations_between_mpc == 0:
+        mpc_carry, forces = _solve_branch(
+            robot, mpc, cmd, mpc_carry, ks, x_t, vel_des_world, table, riccati_cfg
+        )
+    else:
+        forces = mpc_carry.contact_forces
+
+    swing_carry, pos_t, vel_t = swing.update_swing(
+        robot, mpc, gait, cmd, ks, carry.swing, swing_states
+    )
+    torques = legctrl.leg_torques(robot, ks, forces, swing_states, pos_t, vel_t)
+    out = ControllerOutput(
+        torques=torques, contact_forces=forces, swing_states=swing_states,
+        pos_targets=pos_t, vel_targets=vel_t, kin=ks,
+    )
+    return ControllerCarry(mpc=mpc_carry, swing=swing_carry), out
+
+
+def step(
+    robot: RobotParams,
+    mpc: MpcParams,
+    gait: GaitParams,
+    cmd: Command,
+    carry: ControllerCarry,
+    obs: kin.RobotObs,
+    tick: int,
+    solver: str = DEFAULT_SOLVER,
+):
+    """Single-scenario tick (batch size 1 under the hood)."""
+    add = lambda t: t[None]
+    carry_b, out_b = step_batch(
+        tree_map(add, robot), mpc, tree_map(add, gait), tree_map(add, cmd),
+        tree_map(add, carry), tree_map(add, obs), tick, solver=solver,
+    )
+    return tree_map(lambda t: t[0], carry_b), tree_map(lambda t: t[0], out_b)

@@ -1,0 +1,72 @@
+"""Build the port's dataclasses from the JAX package's values.
+
+The JAX package's parameters and carries, given as numpy arrays keyed by
+field name (nested dicts for nested dataclasses), become the port's
+dataclasses on a given device.  No JAX import: the caller does the
+``np.asarray`` on the JAX side (:func:`as_arrays` does it for any
+dataclass), so both frameworks compute from the same numbers.
+
+Static fields (``MpcParams.horizon`` and friends) come back as Python
+ints/bools; every other leaf keeps its dtype (float32, int32, bool).
+The one nested carry, ``ControllerCarry``, has its own builder.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+
+import numpy as np
+import torch
+
+from pympc_quadruped_tpu_torch.control.controller import ControllerCarry
+from pympc_quadruped_tpu_torch.control.refmpc import MpcCarry
+from pympc_quadruped_tpu_torch.control.swing import SwingCarry
+from pympc_quadruped_tpu_torch.env.srb_env import SrbState
+from pympc_quadruped_tpu_torch.models.command import Command
+from pympc_quadruped_tpu_torch.models.gaits import GaitParams
+from pympc_quadruped_tpu_torch.models.mpc import MpcParams
+from pympc_quadruped_tpu_torch.models.robots import RobotParams
+from pympc_quadruped_tpu_torch.ops.kin import RobotObs
+
+# Fields that are static Python values in both packages.
+_STATIC = {"horizon": int, "iterations_between_mpc": int,
+           "ground_adaptive_height": bool}
+
+
+def as_arrays(obj) -> dict:
+    """Nested dict of numpy arrays from any dataclass whose leaves support
+    ``np.asarray`` (a flax struct of JAX arrays, or a port dataclass of CPU
+    tensors)."""
+    return {
+        f.name: (as_arrays(v) if dataclasses.is_dataclass(v) else np.asarray(v))
+        for f in dataclasses.fields(obj)
+        for v in [getattr(obj, f.name)]
+    }
+
+
+def _build(cls, arrays: dict, device="cpu"):
+    kwargs = {}
+    for f in dataclasses.fields(cls):
+        v = arrays[f.name]
+        if f.name in _STATIC:
+            kwargs[f.name] = _STATIC[f.name](v)
+        else:
+            kwargs[f.name] = torch.from_numpy(np.array(v, copy=True)).to(device)
+    return cls(**kwargs)
+
+
+robot_params = functools.partial(_build, RobotParams)
+mpc_params = functools.partial(_build, MpcParams)
+gait_params = functools.partial(_build, GaitParams)
+command = functools.partial(_build, Command)
+mpc_carry = functools.partial(_build, MpcCarry)
+swing_carry = functools.partial(_build, SwingCarry)
+srb_state = functools.partial(_build, SrbState)
+robot_obs = functools.partial(_build, RobotObs)
+
+
+def controller_carry(arrays: dict, device="cpu") -> ControllerCarry:
+    return ControllerCarry(
+        mpc=mpc_carry(arrays["mpc"], device),
+        swing=swing_carry(arrays["swing"], device),
+    )

@@ -1,0 +1,37 @@
+"""Maps over the port's parameter/state dataclasses (the pytree counterpart).
+
+A "tree" here is a dataclass whose fields are tensors, nested dataclasses,
+or static Python values (ints/bools such as ``MpcParams.horizon``), which
+pass through unchanged.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+
+def tree_map(fn, obj, *rest):
+    """Apply ``fn`` to every tensor leaf of ``obj`` (and the matching leaves
+    of ``rest``, which must share its structure)."""
+    if dataclasses.is_dataclass(obj):
+        return dataclasses.replace(obj, **{
+            f.name: tree_map(fn, getattr(obj, f.name),
+                             *(getattr(r, f.name) for r in rest))
+            for f in dataclasses.fields(obj)
+        })
+    if isinstance(obj, torch.Tensor):
+        return fn(obj, *rest)
+    return obj
+
+
+def to(obj, device):
+    """The same tree with every tensor on ``device``."""
+    return tree_map(lambda t: t.to(device), obj)
+
+
+def tile(obj, batch: int):
+    """Broadcast every leaf to a leading scenario axis of size ``batch``."""
+    return tree_map(
+        lambda t: t.expand((batch,) + tuple(t.shape)).contiguous(), obj
+    )

@@ -1,0 +1,148 @@
+"""The closed-loop tick: the port's ``loop.run_ticks`` in lockstep with the
+JAX package's ``controller.step_batch(solver="riccati")`` + ``physics_step``.
+
+B=4 jittered scenarios (scenario 0 nominal), h=16, 60 ticks = 3 solve
+ticks, compared after every tick.  Tolerances, from the two frameworks'
+f32 rounding: held forces 1e-2 N and torques 1e-2 N m (the 40 in-loop ADMM
+sweeps reassociate differently; measured ~1e-3 at ~100 N), base position
+and orientation 1e-5, base velocity 1e-4 m/s.  Each parametrization jits
+the JAX tick once.  (No jumping16 lockstep: its flight tables make the QP
+ill-conditioned, and the two frameworks' solves already differ by 0.1 N at
+the first tick, which the rigid body integrates into 1e-3 rad/s within two
+ticks; its flight-aware reference rows are compared on their own below.)
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pympc_quadruped_tpu.control import controller as jctrl
+from pympc_quadruped_tpu.control import refmpc as jrefmpc
+from pympc_quadruped_tpu.env import srb_env as jenv
+from pympc_quadruped_tpu.models.command import Command as JCommand
+from pympc_quadruped_tpu.models.gaits import Gaits as JGaits
+from pympc_quadruped_tpu.models.mpc import MpcParams as JMpcParams
+from pympc_quadruped_tpu.models.robots import aliengo as jaliengo
+from pympc_quadruped_tpu.ops import gaitsched as jgaitsched
+
+from pympc_quadruped_tpu_torch import convert
+from pympc_quadruped_tpu_torch.control import controller, refmpc
+from pympc_quadruped_tpu_torch.loop import run_ticks
+
+torch.set_num_threads(1)
+
+B, H, N_TICKS = 4, 16, 60
+TOL = {"contact_forces": 1e-2, "torques": 1e-2, "pos": 1e-5, "quat": 1e-5,
+       "vel": 1e-4, "omega_body": 1e-4, "foot_pos": 1e-5}
+
+
+def _jax_setup(adaptive):
+    tile = lambda t: jax.tree.map(lambda x: jnp.broadcast_to(x, (B,) + jnp.shape(x)), t)
+    mpc = JMpcParams(horizon=H, ground_adaptive_height=adaptive)
+    robot = tile(jaliengo())
+    gait = tile(JGaits.trotting16())
+    cmd = tile(JCommand.trot_forward(1.2))
+    state = jax.vmap(jenv.default_init_state)(robot)
+    rng = np.random.default_rng(31)
+    dpos = np.zeros((B, 3), np.float32)
+    dpos[1:, :2] = rng.uniform(-0.01, 0.01, (B - 1, 2))
+    dvel = np.zeros((B, 3), np.float32)
+    dvel[1:] = rng.uniform(-0.02, 0.02, (B - 1, 3))
+    state = state.replace(pos=state.pos + dpos, vel=state.vel + dvel)
+    carry = jax.vmap(lambda _: jctrl.init_carry(H))(jnp.arange(B))
+    return mpc, robot, gait, cmd, state, carry
+
+
+@pytest.mark.parametrize("adaptive", [False, True])
+def test_tick_lockstep_matches_jax(adaptive):
+    """TROTTING16 at 1.2 m/s, with both static ground_adaptive_height
+    programs (reference rows, ground estimate and swing targets differ)."""
+    mpc_j, robot_j, gait_j, cmd_j, state_j, carry_j = _jax_setup(adaptive)
+
+    @jax.jit
+    def jax_tick(state, carry, tick):
+        obs = jax.vmap(jenv.observe)(robot_j, state)
+        carry, out = jctrl.step_batch(robot_j, mpc_j, gait_j, cmd_j, carry, obs, tick,
+                                      solver="riccati")
+        swing_pos_world = state.pos[:, None, :] + jnp.einsum(
+            "bij,blj->bli", out.kin.R_base, out.pos_targets)
+        state = jax.vmap(lambda r, s, f, ss, sp: jenv.physics_step(r, mpc_j, s, f, ss, sp))(
+            robot_j, state, out.contact_forces, out.swing_states, swing_pos_world)
+        return state, carry, out
+
+    A = convert.as_arrays
+    robot, mpc = convert.robot_params(A(robot_j)), convert.mpc_params(A(mpc_j))
+    gait, cmd = convert.gait_params(A(gait_j)), convert.command(A(cmd_j))
+    state, carry = convert.srb_state(A(state_j)), convert.controller_carry(A(carry_j))
+    assert mpc.ground_adaptive_height is adaptive
+
+    for tick in range(N_TICKS):
+        state_j, carry_j, out_j = jax_tick(state_j, carry_j, jnp.int32(tick))
+        carry, state, out = run_ticks(robot, mpc, gait, cmd, carry, state, tick, 1)
+        for name in ("contact_forces", "torques"):
+            np.testing.assert_allclose(getattr(out, name).numpy(), np.asarray(getattr(out_j, name)),
+                                       atol=TOL[name], err_msg=f"tick {tick} {name}")
+        for name in ("pos", "quat", "vel", "omega_body", "foot_pos"):
+            np.testing.assert_allclose(getattr(state, name).numpy(),
+                                       np.asarray(getattr(state_j, name)),
+                                       atol=TOL[name], err_msg=f"tick {tick} {name}")
+    np.testing.assert_allclose(carry.mpc.qp_primal.numpy(), np.asarray(carry_j.mpc.qp_primal),
+                               atol=TOL["contact_forces"])
+
+
+@pytest.mark.parametrize("tick", [0, 40, 100, 180, 260])
+def test_reference_trajectory_with_flight_matches_jax(tick):
+    """X_ref rows incl. the flight-aware z/vz arcs of jumping16 (the
+    lockstep's trot tables never take that branch) and the carry update."""
+    rng = np.random.default_rng(tick)
+    mpc_j = JMpcParams(horizon=H)
+    robot_j = jaliengo()
+    table = np.asarray(jgaitsched.gait_table(JGaits.jumping16(), mpc_j, jnp.int32(tick)))
+    x_t = rng.normal(scale=0.3, size=(B, 13)).astype(np.float32)
+    x_t[:, 12] = -9.81
+    vel = rng.normal(size=(B, 3)).astype(np.float32)
+    carry = jrefmpc.MpcCarry.init(H).replace(
+        xpos_des=jnp.float32(0.05), pitch_comp_int=jnp.float32(0.1))
+    cmd = JCommand.trot_forward(0.4)
+    c_j, X_j = jax.vmap(lambda x, v: jrefmpc.reference_trajectory(
+        carry, x, v, cmd, mpc_j, robot_j, jnp.asarray(table)))(x_t, vel)
+
+    tile = lambda d: {k: np.broadcast_to(v, (B,) + v.shape) for k, v in d.items()}
+    c_p, X_p = refmpc.reference_trajectory(
+        convert.mpc_carry(tile(convert.as_arrays(carry))), torch.tensor(x_t), torch.tensor(vel),
+        convert.command(tile(convert.as_arrays(cmd))), convert.mpc_params(convert.as_arrays(mpc_j)),
+        convert.robot_params(tile(convert.as_arrays(robot_j))),
+        torch.tensor(table).expand(B, -1))
+    np.testing.assert_allclose(X_p.numpy(), np.asarray(X_j), rtol=1e-5, atol=1e-5)
+    for f in dataclasses.fields(c_p):
+        np.testing.assert_allclose(getattr(c_p, f.name).numpy(), np.asarray(getattr(c_j, f.name)),
+                                   rtol=1e-5, atol=1e-6)
+
+
+def test_single_scenario_step_matches_jax():
+    """``controller.step`` (batch of one under the hood) on a solve tick."""
+    mpc_j, robot_j, gait_j, cmd_j, state_j, _ = _jax_setup(False)
+    first = lambda t: jax.tree.map(lambda x: x[1], t)
+    robot_j, gait_j, cmd_j, state_j = map(first, (robot_j, gait_j, cmd_j, state_j))
+    obs_j = jenv.observe(robot_j, state_j)
+    carry_j, out_j = jctrl.step(robot_j, mpc_j, gait_j, cmd_j, jctrl.init_carry(H), obs_j,
+                                jnp.int32(0), solver="riccati")
+    A = convert.as_arrays
+    carry, out = controller.step(
+        convert.robot_params(A(robot_j)), convert.mpc_params(A(mpc_j)),
+        convert.gait_params(A(gait_j)), convert.command(A(cmd_j)),
+        convert.controller_carry(A(jctrl.init_carry(H))), convert.robot_obs(A(obs_j)),
+        0, solver="riccati")
+    assert out.torques.shape == (12,)
+    np.testing.assert_allclose(out.contact_forces.numpy(), np.asarray(out_j.contact_forces),
+                               atol=TOL["contact_forces"])
+    np.testing.assert_allclose(out.torques.numpy(), np.asarray(out_j.torques),
+                               atol=TOL["torques"])
+
+
+def test_default_solver_is_not_ported_yet():
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        controller.check_solver(controller.DEFAULT_SOLVER)
