@@ -11,11 +11,14 @@ PyTorch idiom in place of the JAX one:
   (``dataclasses.replace`` for ``.replace``); :mod:`.tree` maps over them;
 - ``vmap`` is an explicit leading scenario axis, ``lax.scan`` a Python loop;
 - the 50 Hz solve gate is a host ``if`` on the shared Python-int tick;
-- every function takes its device from its inputs.
+- every function takes its device from its inputs, and every constructor
+  (``aliengo()``, ``Gaits.*``, ``default_mpc_params()``, ``init_carry()``,
+  the ``convert`` builders) builds on the card unless given ``device="cpu"``.
 
-The one hand-written kernel so far is the Riccati-ADMM solve
-(``csrc/riccati_admm.cu``, wrapper :mod:`.ops.qp.riccati_cuda`), the
-counterpart of the JAX package's Pallas ``riccati_pallas._solve_kernel``.
+The hand-written CUDA kernels are the counterparts of the JAX package's
+Pallas kernels: the Riccati-ADMM solve (``csrc/riccati_admm.cu``, wrapper
+:mod:`.ops.qp.riccati_cuda`) and the four condensed-ADMM kernels
+(``csrc/admm.cu``, wrapper :mod:`.ops.qp.admm_cuda`).
 """
 
 __version__ = "0.1.0"

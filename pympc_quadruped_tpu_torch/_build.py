@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels at first use.
 
-``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` (no fast-math) into
-one shared library with a plain C interface, which :func:`load` opens with
-``ctypes``.  The library goes to ``_build/<hash of the sources>/`` inside
-the package (git-ignored), so a checkout builds everything from its own
-sources: nothing is downloaded or prebuilt.  :func:`build_host` compiles the
-host twin of a kernel with the system C++ compiler, for the CPU tests.
+``nvcc`` compiles each ``csrc/*.cu`` for ``sm_90a`` (no fast-math) into a
+shared library of its own with a plain C interface, all sources at once in
+parallel, and :func:`load` opens them with ``ctypes``.  The libraries go to
+``_build/<hash of the source and headers>/`` inside the package
+(git-ignored), so a checkout builds everything from its own sources:
+nothing is downloaded or prebuilt.  :func:`build_host` compiles the host
+twin of a kernel with the system C++ compiler, for the CPU tests.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from pathlib import Path
 
@@ -25,6 +27,18 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 HOST_FLAGS = ["-std=c++17", "-O2", "-shared", "-fPIC"]
+
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+# Every C launcher of csrc/, with its argument types; each library binds the
+# ones it exports.  Pointers and the stream are c_void_p, ints c_int.
+SIGNATURES = {
+    "riccati_admm_launch": ([_P] * 18 + [_I] * 3 + [_F] * 2 + [_P], _I),
+    "admm_workspace_floats": ([_I] * 3, _L),
+    "admm_invert_launch": ([_P] * 3 + [_I] * 3 + [_P], _I),
+    "admm_iterate_launch": ([_P] * 13 + [_I] * 4 + [_F] * 2 + [_P], _I),
+    "admm_fused_launch": ([_P] * 14 + [_I] * 4 + [_F] * 2 + [_I, _P], _I),
+    "admm_full_launch": ([_P] * 11 + [_I] * 4 + [_F] * 2 + [_I] * 2 + [_F] * 2 + [_P], _I),
+}
 
 
 @dataclass(frozen=True)
@@ -70,24 +84,37 @@ def _compile(cmd_head, flags, sources, out: Path) -> tuple[float, str]:
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    fn = lib.riccati_admm_launch
-    fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 3 + [ctypes.c_float] * 2 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    for name, (argtypes, restype) in SIGNATURES.items():
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = argtypes, restype
     return lib
 
 
-@functools.cache
-def load() -> Library:
-    """Build (once per source hash) and load the CUDA kernels' library."""
-    sources = sorted(CSRC.glob("*.cu"))
-    out = BUILD_DIR / _digest(sources, NVCC_FLAGS) / "libpympc_kernels.so"
-    seconds, log = _compile([_nvcc()], NVCC_FLAGS, sources, out)
+def _build_one(src: Path) -> Library:
+    out = BUILD_DIR / _digest([src], NVCC_FLAGS) / f"lib{src.stem}.so"
+    seconds, log = _compile([_nvcc()], NVCC_FLAGS, [src], out)
     return Library(_bind(ctypes.CDLL(str(out))), out, seconds, log)
+
+
+@functools.cache
+def load_all() -> dict[str, Library]:
+    """Build every ``csrc/*.cu`` (one nvcc each, all started together, once
+    per source hash) and load them; keys are the source stems."""
+    sources = sorted(CSRC.glob("*.cu"))
+    with ThreadPoolExecutor(max_workers=len(sources)) as pool:
+        libs = list(pool.map(_build_one, sources))
+    return {src.stem: lib for src, lib in zip(sources, libs)}
+
+
+def load(name: str) -> Library:
+    """The loaded library of ``csrc/<name>.cu`` (building them all at first use)."""
+    return load_all()[name]
 
 
 def build_host(source: str, out_dir: Path) -> ctypes.CDLL:
     """Compile ``csrc/<source>`` with the host C++ compiler into ``out_dir``
-    and bind it like the CUDA library."""
+    and bind it like the CUDA libraries."""
     src = CSRC / source
     out = Path(out_dir) / f"{src.stem}_{_digest([src], HOST_FLAGS)}.so"
     cxx = os.environ.get("CXX") or shutil.which("g++") or "c++"

@@ -6,8 +6,11 @@ except ``mpc`` and ``tick`` carries a leading scenario axis.  The JAX
 batch-level ``lax.cond`` solve gate is a host ``if`` on the shared Python
 int ``tick``, so the solve really runs only on solve ticks.
 
-Only the sparse Riccati solver (``solver="riccati"``) is ported; the other
-solvers raise ``NotImplementedError`` naming the ROADMAP item they wait for.
+Ported solvers: ``"admm_fast"`` (the default; the condensed QP of
+:func:`refmpc.build_qp` solved by :mod:`..ops.qp.admm_fast`, whose CUDA
+kernels run on the card) and ``"riccati"`` (the sparse path).  ``"admm"``,
+``"ipm"`` and ``"ipm_parity"`` raise ``NotImplementedError`` naming the
+ROADMAP item they wait for.
 """
 from __future__ import annotations
 
@@ -22,15 +25,14 @@ from pympc_quadruped_tpu_torch.models.gaits import GaitParams
 from pympc_quadruped_tpu_torch.models.mpc import MpcParams
 from pympc_quadruped_tpu_torch.models.robots import RobotParams
 from pympc_quadruped_tpu_torch.ops import gaitsched, kin, srb
-from pympc_quadruped_tpu_torch.ops.qp import cones, riccati
+from pympc_quadruped_tpu_torch.ops.qp import admm_fast, cones, riccati
 from pympc_quadruped_tpu_torch.tree import tree_map
 
-# The JAX package's default; not ported yet, so callers pass "riccati".
 DEFAULT_SOLVER = "admm_fast"
+SOLVERS = ("admm_fast", "riccati")
 
 _NOT_PORTED = {
-    "admm_fast": "the condensed path (ROADMAP Queue 1, item 8)",
-    "admm": "the condensed path (ROADMAP Queue 1, item 8)",
+    "admm": "the parity solvers (ROADMAP Queue 1, item 9)",
     "ipm": "the parity solvers (ROADMAP Queue 1, item 9)",
     "ipm_parity": "the parity solvers (ROADMAP Queue 1, item 9)",
 }
@@ -41,7 +43,7 @@ def check_solver(solver: str) -> None:
         raise NotImplementedError(
             f"solver={solver!r} is not ported yet: it waits for {_NOT_PORTED[solver]}"
         )
-    if solver != "riccati":
+    if solver not in SOLVERS:
         raise ValueError(f"unknown solver {solver!r}")
 
 
@@ -61,8 +63,9 @@ class ControllerOutput:
     kin: kin.KinState
 
 
-def init_carry(horizon: int = 10) -> ControllerCarry:
-    return ControllerCarry(mpc=refmpc.MpcCarry.init(horizon), swing=swing.SwingCarry.init())
+def init_carry(horizon: int = 10, device="cuda") -> ControllerCarry:
+    return ControllerCarry(mpc=refmpc.MpcCarry.init(horizon, device),
+                           swing=swing.SwingCarry.init(device))
 
 
 def _pre_solve(robot, mpc, gait, cmd, carry, obs, tick):
@@ -78,12 +81,15 @@ def _pre_solve(robot, mpc, gait, cmd, carry, obs, tick):
 
 
 def _solve_branch(robot, mpc, cmd, mpc_carry, ks, x_t, vel_des_world, table,
-                  riccati_cfg):
-    """Reference trajectory + batched Riccati solve; returns (carry', forces).
+                  solver, admm_fast_cfg, riccati_cfg):
+    """Reference trajectory + batched QP solve; returns (carry', forces).
 
-    A scenario whose solution comes back non-finite keeps its previously
-    held GRFs (the reference's last solution stays applied), and its warm
-    start resets to zeros (a cold restart next solve)."""
+    Both solvers warm-start from the previous solve shifted by one MPC step
+    (receding horizon: block k of this solve aligns with block k+1 of the
+    last one; 12 variables and 20 cone rows per step, the trailing step
+    repeats).  A scenario whose solution comes back non-finite keeps its
+    previously held GRFs (the reference's last solution stays applied), and
+    its warm start resets to zeros (a cold restart next solve)."""
     ground_z = None
     if mpc.ground_adaptive_height:
         # Support-plane height from stance-foot leg odometry; flight steps
@@ -101,16 +107,22 @@ def _solve_branch(robot, mpc, cmd, mpc_carry, ks, x_t, vel_des_world, table,
     )
 
     yaw = x_t[:, 2]
-    Ad, Bd = srb.discretize(*srb.state_space(robot, yaw, ks.pos_base_feet), mpc.dt_predict)
-    mv = cones.variable_mask(table, mpc)
-    # Receding-horizon warm start: shift by one step (12 variables, 20 cone
-    # rows); the trailing step repeats.
     U_ws = torch.cat([mpc_carry.qp_primal[:, 12:], mpc_carry.qp_primal[:, -12:]], dim=-1)
     lam_ws = torch.cat([mpc_carry.qp_dual[:, 20:], mpc_carry.qp_dual[:, -20:]], dim=-1)
-    U, lam = riccati.solve_batch(
-        Ad, Bd, x_t, X, table, robot.fz_max, mpc, riccati_cfg,
-        warm=(U_ws, lam_ws), return_duals=True,
-    )
+    if solver == "riccati":
+        # Sparse O(h) path: no condensing, Ad/Bd feed the Riccati-ADMM solve.
+        Ad, Bd = srb.discretize(*srb.state_space(robot, yaw, ks.pos_base_feet), mpc.dt_predict)
+        mv = cones.variable_mask(table, mpc)
+        U, lam = riccati.solve_batch(
+            Ad, Bd, x_t, X, table, robot.fz_max, mpc, riccati_cfg,
+            warm=(U_ws, lam_ws), return_duals=True,
+        )
+    else:
+        H, g, mv = refmpc.build_qp(robot, mpc, x_t, yaw, ks.pos_base_feet, X, table)
+        U, lam = admm_fast.solve_batch(
+            H, g, table, robot.fz_max, mpc, admm_fast_cfg,
+            warm=(U_ws, lam_ws), return_duals=True,
+        )
     ok_ws = (torch.isfinite(U).all(dim=-1, keepdim=True)
              & torch.isfinite(lam).all(dim=-1, keepdim=True))
     mpc_carry = dataclasses.replace(
@@ -132,6 +144,9 @@ def step_batch(
     obs: kin.RobotObs,
     tick: int,
     solver: str = DEFAULT_SOLVER,
+    # In-loop presets: every solve after the first is warm-started from the
+    # previous tick's shifted primal and duals.
+    admm_fast_cfg: admm_fast.AdmmFastConfig = admm_fast.AdmmFastConfig.inloop(),
     riccati_cfg: riccati.RiccatiConfig = riccati.RiccatiConfig.inloop(),
 ):
     """Batched tick.  ``tick`` is the shared Python-int tick counter.
@@ -143,7 +158,8 @@ def step_batch(
     )
     if tick % mpc.iterations_between_mpc == 0:
         mpc_carry, forces = _solve_branch(
-            robot, mpc, cmd, mpc_carry, ks, x_t, vel_des_world, table, riccati_cfg
+            robot, mpc, cmd, mpc_carry, ks, x_t, vel_des_world, table, solver,
+            admm_fast_cfg, riccati_cfg,
         )
     else:
         forces = mpc_carry.contact_forces

@@ -6,8 +6,9 @@ axis.  Reproduced reference semantics as in the JAX module (ref
 ``linear_mpc/mpc.py:83-170``): world-frame desired velocity from the full
 base rotation, the first-run latch, +-0.1 m clamping of the desired x/y on
 solve ticks, the roll/pitch compensation integrators with dt_predict, and
-the X_ref rows with ``x[12] = -g``.  The condensed QP build (``build_qp*``,
-``solve_mpc``) waits for the condensed path (ROADMAP Queue 1 item 8).
+the X_ref rows with ``x[12] = -g``.  :func:`build_qp` is the condensed QP
+build of the default solver; ``build_qp_ff`` and ``solve_mpc`` serve the
+parity solvers and wait for them (ROADMAP Queue 1, item 9).
 """
 from __future__ import annotations
 
@@ -19,7 +20,9 @@ import torch
 from pympc_quadruped_tpu_torch.models.command import Command
 from pympc_quadruped_tpu_torch.models.mpc import NUM_STATE, MpcParams
 from pympc_quadruped_tpu_torch.models.robots import RobotParams
+from pympc_quadruped_tpu_torch.ops import condense, srb
 from pympc_quadruped_tpu_torch.ops.kin import KinState
+from pympc_quadruped_tpu_torch.ops.qp import cones
 
 
 @dataclass
@@ -37,15 +40,16 @@ class MpcCarry:
     qp_dual: torch.Tensor
 
     @staticmethod
-    def init(horizon: int = 10) -> "MpcCarry":
-        z = torch.tensor(0.0, dtype=torch.float32)
+    def init(horizon: int = 10, device="cuda") -> "MpcCarry":
+        f32 = dict(dtype=torch.float32, device=device)
+        z = torch.tensor(0.0, **f32)
         return MpcCarry(
-            contact_forces=torch.zeros(12, dtype=torch.float32),
+            contact_forces=torch.zeros(12, **f32),
             xpos_des=z, ypos_des=z.clone(), yaw_des=z.clone(),
             roll_comp_int=z.clone(), pitch_comp_int=z.clone(),
-            first_run=torch.tensor(True),
-            qp_primal=torch.zeros(12 * horizon, dtype=torch.float32),
-            qp_dual=torch.zeros(20 * horizon, dtype=torch.float32),
+            first_run=torch.tensor(True, device=device),
+            qp_primal=torch.zeros(12 * horizon, **f32),
+            qp_dual=torch.zeros(20 * horizon, **f32),
         )
 
 
@@ -192,3 +196,25 @@ def _flight_rows(gait_table: torch.Tensor, z_des, mpc: MpcParams):
     z_ref = torch.where(has_flight, z_ref, z_des.expand_as(z_ref))
     vz_ref = torch.where(has_flight, vz_ref, torch.zeros_like(vz_ref))
     return z_ref, vz_ref
+
+
+def build_qp(
+    robot: RobotParams,
+    mpc: MpcParams,
+    x_t: torch.Tensor,            # (B,13)
+    yaw: torch.Tensor,            # (B,)
+    pos_base_feet: torch.Tensor,  # (B,4,3)
+    X_ref: torch.Tensor,          # (B,h,13) or (B,13h)
+    gait_table: torch.Tensor,     # (B,4h)
+):
+    """(Ac,Bc) -> (Ad,Bd) -> condensed (H, g) with swing-leg masking
+    applied, batched; ``robot`` carries the scenario axis.
+
+    Returns H (B,12h,12h), g (B,12h) and the stance variable mask mv (B,12h).
+    """
+    Ac, Bc = srb.state_space(robot, yaw, pos_base_feet)
+    Ad, Bd = srb.discretize(Ac, Bc, mpc.dt_predict)
+    H, g = condense.condense(Ad, Bd, x_t, X_ref, mpc)
+    mv = cones.variable_mask(gait_table, mpc)
+    H, g = cones.mask_cost(H, g, mv)
+    return H, g, mv

@@ -30,12 +30,13 @@ class SwingCarry:
     footpos_final: torch.Tensor         # (4,3) world
 
     @staticmethod
-    def init() -> "SwingCarry":
+    def init(device="cuda") -> "SwingCarry":
+        f32 = dict(dtype=torch.float32, device=device)
         return SwingCarry(
-            is_first_swing=torch.ones(4, dtype=torch.bool),
-            remaining_swing_time=torch.zeros(4, dtype=torch.float32),
-            footpos_init=torch.zeros((4, 3), dtype=torch.float32),
-            footpos_final=torch.zeros((4, 3), dtype=torch.float32),
+            is_first_swing=torch.ones(4, dtype=torch.bool, device=device),
+            remaining_swing_time=torch.zeros(4, **f32),
+            footpos_init=torch.zeros((4, 3), **f32),
+            footpos_final=torch.zeros((4, 3), **f32),
         )
 
 

@@ -2,7 +2,8 @@
 
 The JAX package's parameters and carries, given as numpy arrays keyed by
 field name (nested dicts for nested dataclasses), become the port's
-dataclasses on a given device.  No JAX import: the caller does the
+dataclasses on a given device (the card unless the caller passes
+``device="cpu"``).  No JAX import: the caller does the
 ``np.asarray`` on the JAX side (:func:`as_arrays` does it for any
 dataclass), so both frameworks compute from the same numbers.
 
@@ -44,7 +45,7 @@ def as_arrays(obj) -> dict:
     }
 
 
-def _build(cls, arrays: dict, device="cpu"):
+def _build(cls, arrays: dict, device="cuda"):
     kwargs = {}
     for f in dataclasses.fields(cls):
         v = arrays[f.name]
@@ -65,7 +66,7 @@ srb_state = functools.partial(_build, SrbState)
 robot_obs = functools.partial(_build, RobotObs)
 
 
-def controller_carry(arrays: dict, device="cpu") -> ControllerCarry:
+def controller_carry(arrays: dict, device="cuda") -> ControllerCarry:
     return ControllerCarry(
         mpc=mpc_carry(arrays["mpc"], device),
         swing=swing_carry(arrays["swing"], device),

@@ -1,21 +1,25 @@
 """Batched MPC engine facade (port of ``engine.py``).
 
 ``solve_scenarios`` is the batched solve: a scenario batch of SRB states,
-footholds, references and gait tables in, GRFs out.  Only the sparse
-Riccati route is ported (state-space build -> exact ZOH -> Riccati-ADMM,
-the hand-written CUDA kernel on a GPU); the other solvers raise
+footholds, references and gait tables in, GRFs out.  Routes: ``"admm"``
+(the default) and its alias ``"admm_fast"`` condense the QP
+(``refmpc.build_qp``) and solve it with :mod:`.ops.qp.admm_fast`, whose
+CUDA kernels run on a GPU; ``"riccati"`` goes state-space -> exact ZOH ->
+Riccati-ADMM without condensing.  ``"admm_ref"`` and ``"ipm"`` raise
 ``NotImplementedError`` naming the ROADMAP item they wait for.
 """
 from __future__ import annotations
 
 import torch
 
+from pympc_quadruped_tpu_torch.control import refmpc
 from pympc_quadruped_tpu_torch.control.controller import check_solver
 from pympc_quadruped_tpu_torch.models.mpc import MpcParams
 from pympc_quadruped_tpu_torch.models.robots import RobotParams
 from pympc_quadruped_tpu_torch.ops import srb
-from pympc_quadruped_tpu_torch.ops.qp import riccati
+from pympc_quadruped_tpu_torch.ops.qp import admm_fast, cones, riccati
 from pympc_quadruped_tpu_torch.tree import tile
+from pympc_quadruped_tpu_torch.utils import observability
 
 
 def solve_scenarios(
@@ -27,6 +31,7 @@ def solve_scenarios(
     X_ref: torch.Tensor,          # (B,h,13) or (B,13h)
     gait_table: torch.Tensor,     # (B,4h)
     solver: str = "admm",
+    admm_fast_cfg: admm_fast.AdmmFastConfig = admm_fast.AdmmFastConfig(),
     riccati_cfg: riccati.RiccatiConfig = riccati.RiccatiConfig(),
     return_full_horizon: bool = False,
     return_diagnostics: bool = False,
@@ -35,26 +40,41 @@ def solve_scenarios(
 ):
     """Batched MPC solve.  ``robot`` may be unbatched (shared) or carry a
     leading batch axis.  Returns (B,12) first-step GRFs, or (B,12h) with
-    ``return_full_horizon``; with ``return_duals`` also the (B,20h) cone
-    duals to carry into the next ``warm`` = ``(U_prev, lam_prev)``."""
+    ``return_full_horizon``; with ``return_diagnostics`` also the
+    per-scenario QP health dict of :func:`observability.qp_residuals`; with
+    ``return_duals`` last the (B,20h) cone duals, to carry into the next
+    ``warm`` = ``(U_prev, lam_prev)``: ``(U[, diag][, lam])``."""
     # The engine's "admm" is the controller's "admm_fast"; "admm_ref" its "admm".
     check_solver({"admm": "admm_fast", "admm_ref": "admm"}.get(solver, solver))
-    if return_diagnostics:
-        raise NotImplementedError(
-            "return_diagnostics needs build_qp/qp_residuals (ROADMAP Queue 1, item 8)"
-        )
     if return_duals and not return_full_horizon:
         # The warm start consumes the full-horizon primal.
         raise ValueError("return_duals requires return_full_horizon=True")
     B = x_t.shape[0]
     if robot.mass.ndim == 0:
         robot = tile(robot, B)
+    X_ref = X_ref.reshape(B, -1)
 
-    Ad, Bd = srb.discretize(*srb.state_space(robot, yaw, pos_base_feet), mpc.dt_predict)
-    res = riccati.solve_batch(
-        Ad, Bd, x_t, X_ref.reshape(B, -1), gait_table, robot.fz_max, mpc,
-        riccati_cfg, warm=warm, return_duals=return_duals,
-    )
+    H = g = None
+    if solver == "riccati":
+        Ad, Bd = srb.discretize(*srb.state_space(robot, yaw, pos_base_feet), mpc.dt_predict)
+        mv = cones.variable_mask(gait_table, mpc)
+        res = riccati.solve_batch(
+            Ad, Bd, x_t, X_ref, gait_table, robot.fz_max, mpc,
+            riccati_cfg, warm=warm, return_duals=return_duals,
+        )
+    else:
+        H, g, mv = refmpc.build_qp(robot, mpc, x_t, yaw, pos_base_feet, X_ref, gait_table)
+        res = admm_fast.solve_batch(
+            H, g, gait_table, robot.fz_max, mpc, admm_fast_cfg,
+            warm=warm, return_duals=return_duals,
+        )
     U, lam = res if return_duals else (res, None)
-    out = U if return_full_horizon else U[:, :12]
-    return (out, lam) if return_duals else out
+    U = U * mv
+    results = [U if return_full_horizon else U[:, :12]]
+    if return_diagnostics:
+        if H is None:
+            H, g, _ = refmpc.build_qp(robot, mpc, x_t, yaw, pos_base_feet, X_ref, gait_table)
+        results.append(observability.qp_residuals(H, g, gait_table, robot.fz_max, U, mpc))
+    if return_duals:
+        results.append(lam)
+    return results[0] if len(results) == 1 else tuple(results)

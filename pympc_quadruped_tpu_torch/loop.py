@@ -10,9 +10,10 @@ from pympc_quadruped_tpu_torch.control import controller as ctrl
 from pympc_quadruped_tpu_torch.env import srb_env
 
 
-def run_ticks(robot, mpc, gait, cmd, carry, state, tick0: int, n_ticks: int):
+def run_ticks(robot, mpc, gait, cmd, carry, state, tick0: int, n_ticks: int,
+              solver: str = ctrl.DEFAULT_SOLVER):
     """Advance ``n_ticks`` ticks from the absolute tick ``tick0`` with the
-    sparse Riccati solver (the only one ported).
+    controller's ``solver`` (``"admm_fast"``, the default, or ``"riccati"``).
 
     Returns (carry, state, out): the controller carry and SRB state after
     the last tick, and that tick's ``ControllerOutput``."""
@@ -20,7 +21,7 @@ def run_ticks(robot, mpc, gait, cmd, carry, state, tick0: int, n_ticks: int):
     for tick in range(tick0, tick0 + n_ticks):
         obs = srb_env.observe(robot, state)
         carry, out = ctrl.step_batch(robot, mpc, gait, cmd, carry, obs, tick,
-                                     solver="riccati")
+                                     solver=solver)
         swing_pos_world = state.pos[:, None, :] + (
             out.kin.R_base[:, None] @ out.pos_targets[..., None]
         )[..., 0]

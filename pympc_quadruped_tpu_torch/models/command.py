@@ -14,8 +14,9 @@ class Command:
     yaw_turn_rate: torch.Tensor  # scalar rad/s
 
     @staticmethod
-    def trot_forward(vx: float = 1.2) -> "Command":
+    def trot_forward(vx: float = 1.2, device="cuda") -> "Command":
+        f32 = dict(dtype=torch.float32, device=device)
         return Command(
-            vel_base_des=torch.tensor([vx, 0.0, 0.0], dtype=torch.float32),
-            yaw_turn_rate=torch.tensor(0.0, dtype=torch.float32),
+            vel_base_des=torch.tensor([vx, 0.0, 0.0], **f32),
+            yaw_turn_rate=torch.tensor(0.0, **f32),
         )

@@ -29,50 +29,51 @@ class GaitParams:
         return self.num_segments - self.stance_durations[..., 0]
 
 
-def _gait(num_segments, offsets, durations) -> GaitParams:
-    i32 = torch.int32
+def _gait(num_segments, offsets, durations, device) -> GaitParams:
+    i32 = dict(dtype=torch.int32, device=device)
     return GaitParams(
-        num_segments=torch.tensor(num_segments, dtype=i32),
-        stance_offsets=torch.tensor(offsets, dtype=i32),
-        stance_durations=torch.tensor(durations, dtype=i32),
+        num_segments=torch.tensor(num_segments, **i32),
+        stance_offsets=torch.tensor(offsets, **i32),
+        stance_durations=torch.tensor(durations, **i32),
     )
 
 
 class Gaits:
-    """The reference's gait library (ref gait.py:16-22), as constructors."""
+    """The reference's gait library (ref gait.py:16-22), as constructors
+    that make their tensors on ``device``."""
 
     @staticmethod
-    def standing() -> GaitParams:
-        return _gait(16, [0, 0, 0, 0], [16, 16, 16, 16])
+    def standing(device="cuda") -> GaitParams:
+        return _gait(16, [0, 0, 0, 0], [16, 16, 16, 16], device)
 
     @staticmethod
-    def trotting16() -> GaitParams:
-        return _gait(16, [0, 8, 8, 0], [8, 8, 8, 8])
+    def trotting16(device="cuda") -> GaitParams:
+        return _gait(16, [0, 8, 8, 0], [8, 8, 8, 8], device)
 
     @staticmethod
-    def trotting10() -> GaitParams:
-        return _gait(10, [0, 5, 5, 0], [5, 5, 5, 5])
+    def trotting10(device="cuda") -> GaitParams:
+        return _gait(10, [0, 5, 5, 0], [5, 5, 5, 5], device)
 
     @staticmethod
-    def jumping16() -> GaitParams:
-        return _gait(16, [0, 0, 0, 0], [4, 4, 4, 4])
+    def jumping16(device="cuda") -> GaitParams:
+        return _gait(16, [0, 0, 0, 0], [4, 4, 4, 4], device)
 
     @staticmethod
-    def pacing16() -> GaitParams:
-        return _gait(16, [8, 0, 8, 0], [8, 8, 8, 8])
+    def pacing16(device="cuda") -> GaitParams:
+        return _gait(16, [8, 0, 8, 0], [8, 8, 8, 8], device)
 
     @staticmethod
-    def pacing10() -> GaitParams:
-        return _gait(10, [5, 0, 5, 0], [5, 5, 5, 5])
+    def pacing10(device="cuda") -> GaitParams:
+        return _gait(10, [5, 0, 5, 0], [5, 5, 5, 5], device)
 
     @staticmethod
-    def bounding8() -> GaitParams:
+    def bounding8(device="cuda") -> GaitParams:
         """Bounding: front pair then rear pair (commented out in the
         reference, ref gait.py:20)."""
-        return _gait(8, [4, 4, 0, 0], [4, 4, 4, 4])
+        return _gait(8, [4, 4, 0, 0], [4, 4, 4, 4], device)
 
     @staticmethod
-    def by_name(name: str) -> GaitParams:
+    def by_name(name: str, device="cuda") -> GaitParams:
         return {
             "standing": Gaits.standing,
             "trotting16": Gaits.trotting16,
@@ -81,4 +82,4 @@ class Gaits:
             "pacing16": Gaits.pacing16,
             "pacing10": Gaits.pacing10,
             "bounding8": Gaits.bounding8,
-        }[name]()
+        }[name](device)

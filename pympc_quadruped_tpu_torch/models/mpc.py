@@ -14,6 +14,8 @@ from dataclasses import dataclass, field
 
 import torch
 
+from pympc_quadruped_tpu_torch import tree
+
 NUM_STATE = 13   # [roll, pitch, yaw, x, y, z, wx, wy, wz, vx, vy, vz, g]
 NUM_INPUT = 12   # [f_FL, f_FR, f_RL, f_RR], world frame
 
@@ -49,5 +51,6 @@ class MpcParams:
         return self.dt_control * self.iterations_between_mpc
 
 
-def default_mpc_params(horizon: int = 16) -> MpcParams:
-    return MpcParams(horizon=horizon)
+def default_mpc_params(horizon: int = 16, device="cuda") -> MpcParams:
+    """``MpcParams(horizon=horizon)`` with every tensor on ``device``."""
+    return tree.to(MpcParams(horizon=horizon), device)

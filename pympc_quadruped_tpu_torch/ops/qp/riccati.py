@@ -53,7 +53,7 @@ class RiccatiConfig(NamedTuple):
 
 #: Trunk mass [kg] of the robot every rho grid was tuned on (Aliengo),
 #: taken from this package's own ``aliengo()`` rather than repeated.
-MASS_NORM_REF = float(aliengo().mass)
+MASS_NORM_REF = float(aliengo(device="cpu").mass)
 
 
 def rho_scale_from_Bd(Bd: torch.Tensor, mpc: MpcParams) -> torch.Tensor:
@@ -78,7 +78,7 @@ def _pyramid_rows(mu: torch.Tensor) -> torch.Tensor:
     """The (5,3) per-(step,leg) friction-pyramid block
     ``[1,0,mu], [-1,0,mu], [0,1,mu], [0,-1,mu], [0,0,1]``.
 
-    Lives here until the condensed path is ported; its JAX home is
+    Shared with :mod:`.admm_fast`; its JAX home is
     ``ops/qp/admm_fast.py::_pyramid_rows``."""
     mu = torch.as_tensor(mu)
     one, zero = torch.ones_like(mu), torch.zeros_like(mu)
@@ -95,8 +95,8 @@ def _gauss_jordan_inv(M: torch.Tensor) -> torch.Tensor:
     """Pivot-free Gauss-Jordan inverse of small SPD blocks, batched over
     leading axes.
 
-    Lives here until the condensed path is ported; its JAX home is
-    ``ops/qp/admm_fast.py::_gauss_jordan_inv``."""
+    Shared with :mod:`.admm_fast` (the Schur recursion's leaves); its JAX
+    home is ``ops/qp/admm_fast.py::_gauss_jordan_inv``."""
     n = M.shape[-1]
     eye = torch.eye(n, dtype=M.dtype, device=M.device).expand(M.shape)
     A = torch.cat([M, eye], dim=-1)                            # (...,n,2n)

@@ -123,7 +123,7 @@ def factor_iterate(Ad, Bd, x_t, X_ref, hu, m_u, gate, l, u_bnd, mpc: MpcParams,
     h = mpc.horizon
     ops = operands(Ad, Bd, x_t, X_ref, hu, m_u, gate, l, u_bnd, mpc, cfg,
                    init, rho_b)
-    lib = _build.load().lib
+    lib = _build.load("riccati_admm").lib
     with torch.cuda.device(x_t.device):
         launch(lib, ops, h, cfg, torch.cuda.current_stream().cuda_stream)
     LAUNCHES += 1

@@ -91,7 +91,7 @@ def test_quat_integrate_matches_jax():
 
 def _robots():
     jr = jaliengo()
-    return jr, convert.robot_params(convert.as_arrays(jr))
+    return jr, convert.robot_params(convert.as_arrays(jr), device="cpu")
 
 
 def _joint_batch(seed):
@@ -133,7 +133,7 @@ def test_compute_kin_state_matches_jax():
     }
     jobs = jkin.RobotObs(**{k: jnp.asarray(v) for k, v in obs.items()})
     j = jax.vmap(lambda o: jkin.compute_kin_state(jr, o))(jobs)
-    p = kin.compute_kin_state(pr, convert.robot_obs(obs))
+    p = kin.compute_kin_state(pr, convert.robot_obs(obs, device="cpu"))
     for f in dataclasses.fields(p):
         _cmp(getattr(j, f.name), getattr(p, f.name), TRANSC)
 
@@ -142,14 +142,14 @@ def test_joint_order_contract():
     """Legs FL, FR, RL, RR; joints (hip, thigh, calf); the FK of each leg
     lands in its own quadrant; gait tables are (step, leg) row-major."""
     assert LEG_NAMES == ("FL", "FR", "RL", "RR")
-    hips = aliengo().hip_offset.numpy()
+    hips = aliengo(device="cpu").hip_offset.numpy()
     np.testing.assert_array_equal(np.sign(hips[:, :2]),
                                   [[1, 1], [1, -1], [-1, 1], [-1, -1]])
     q0 = torch.tensor([0.0, 0.8, -1.6]).repeat(4, 1)
-    feet, _ = kin.leg_forward_kinematics(aliengo(), q0)
+    feet, _ = kin.leg_forward_kinematics(aliengo(device="cpu"), q0)
     np.testing.assert_array_equal(np.sign(feet[:, :2].numpy()),
                                   [[1, 1], [1, -1], [-1, 1], [-1, -1]])
-    table = gaitsched.gait_table(Gaits.trotting10(), MpcParams(horizon=10), 0)
+    table = gaitsched.gait_table(Gaits.trotting10(device="cpu"), MpcParams(horizon=10), 0)
     for row in table.reshape(10, 4).numpy():
         assert row[0] == row[3] and row[1] == row[2] and row[0] != row[1]
 
@@ -190,7 +190,7 @@ def test_gaitsched_matches_jax(name):
     gait tiled to a batch of 3: tables and segment indices exactly, phases
     at 1e-6 (one f32 division each side)."""
     jg, jm = JGaits.by_name(name), JMpcParams(horizon=16)
-    pg, pm = tree.tile(Gaits.by_name(name), 3), MpcParams(horizon=16)
+    pg, pm = tree.tile(Gaits.by_name(name, device="cpu"), 3), MpcParams(horizon=16)
     for tick in (0, 1, 19, 20, 159, 160, 333, 1000, 4321):
         t = jnp.int32(tick)
         it_j, ph_j = jgaitsched.phase_of_tick(jg, jm, t)

@@ -67,7 +67,7 @@ def _case(name):
         init = (jnp.asarray(np.random.default_rng(1).normal(size=(B, h, 12)), jnp.float32),
                 jnp.zeros((B, h, 20), jnp.float32), jnp.zeros((B, h, 20), jnp.float32))
     jargs = (Ad, Bd, x_t, X_ref, hu, m_u, gate, l, u_bnd)
-    mpc = convert.mpc_params(convert.as_arrays(mpc_j))
+    mpc = convert.mpc_params(convert.as_arrays(mpc_j), device="cpu")
     port = dict(args=tuple(_t(a) for a in jargs), mpc=mpc, cfg=cfg,
                 init=None if init is None else tuple(_t(a) for a in init),
                 rho_b=None if rho_b is None else _t(rho_b))
@@ -134,10 +134,11 @@ def test_kernel_code_on_host_h16_matches_plain(host_kernel):
     version agree far inside the on-card bars (first-step fz within 2%,
     U within 1 N) on a ragged batch."""
     mpc_j, robot_j, Ad, Bd, x_t, X_ref, table = _problem(5, 16, seed=3)
-    mpc, cfg = convert.mpc_params(convert.as_arrays(mpc_j)), riccati.RiccatiConfig.inloop()
+    mpc = convert.mpc_params(convert.as_arrays(mpc_j), device="cpu")
+    cfg = riccati.RiccatiConfig.inloop()
     Ad, Bd, x_t, X_ref, table = map(_t, (Ad, Bd, x_t, X_ref, table))
     m_u, gate = riccati.step_gating(table, 16)
-    l, u_bnd = riccati.step_bounds(table, aliengo().fz_max, 16)
+    l, u_bnd = riccati.step_bounds(table, aliengo(device="cpu").fz_max, 16)
     rho_b = cfg.rho * riccati.rho_scale_from_Bd(Bd, mpc)
     hu = riccati.input_cost_diag(m_u, mpc, cfg, rho_b=rho_b)
     p = dict(args=(Ad, Bd, x_t, X_ref, hu, m_u, gate, l, u_bnd), mpc=mpc, cfg=cfg,
@@ -169,8 +170,8 @@ def test_engine_riccati_matches_jax_and_oracle(gait, tick):
         robot_j, mpc_j, *map(jnp.asarray, arrays), solver="riccati",
         return_full_horizon=True), np.float64)[0]
     U = engine.solve_scenarios(
-        convert.robot_params(convert.as_arrays(robot_j)),
-        convert.mpc_params(convert.as_arrays(mpc_j)),
+        convert.robot_params(convert.as_arrays(robot_j), device="cpu"),
+        convert.mpc_params(convert.as_arrays(mpc_j), device="cpu"),
         *map(torch.tensor, arrays), solver="riccati", return_full_horizon=True,
     ).numpy().astype(np.float64)[0]
     assert _gap(H64, g64, U, U_star) < 1e-4
@@ -184,8 +185,8 @@ def test_engine_warm_duals_roundtrip():
     """return_duals/warm: a converged solve fed back as the warm start stays
     put (the receding-horizon contract the controller relies on)."""
     mpc_j, robot_j, arrays, table, H64, g64 = _engine_inputs(0, "trotting16")
-    args = (convert.robot_params(convert.as_arrays(robot_j)),
-            convert.mpc_params(convert.as_arrays(mpc_j)), *map(torch.tensor, arrays))
+    args = (convert.robot_params(convert.as_arrays(robot_j), device="cpu"),
+            convert.mpc_params(convert.as_arrays(mpc_j), device="cpu"), *map(torch.tensor, arrays))
     deep = riccati.RiccatiConfig(iterations=300)
     U0, lam0 = engine.solve_scenarios(*args, solver="riccati", riccati_cfg=deep,
                                       return_full_horizon=True, return_duals=True)
@@ -197,12 +198,12 @@ def test_engine_warm_duals_roundtrip():
     assert _gap(H64, g64, U_warm[0].numpy().astype(np.float64), U_star) < 1e-5
 
 
-@pytest.mark.parametrize("solver", ["admm", "admm_fast", "ipm"])
+@pytest.mark.parametrize("solver", ["admm_ref", "ipm"])
 def test_unported_solvers_raise(solver):
     mpc_j, robot_j, arrays, *_ = _engine_inputs(0, "trotting16")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        engine.solve_scenarios(convert.robot_params(convert.as_arrays(robot_j)),
-                               convert.mpc_params(convert.as_arrays(mpc_j)),
+        engine.solve_scenarios(convert.robot_params(convert.as_arrays(robot_j), device="cpu"),
+                               convert.mpc_params(convert.as_arrays(mpc_j), device="cpu"),
                                *map(torch.tensor, arrays), solver=solver)
 
 
