@@ -7,15 +7,18 @@ result):
 
 1. device and build: a CUDA card, its name and power limit, every kernel
    built from ``pympc_quadruped_tpu_torch/csrc`` (one nvcc per source, in
-   parallel);
+   parallel) with its ptxas report, and the Riccati kernel's resident
+   scenarios per SM and shared memory per block;
 2. Riccati kernel vs plain: the Riccati-ADMM kernel against its plain
    PyTorch version on the same random h=16 problems, at B=4096 and at a
    ragged B=130: cold, warm-started, and with per-scenario rho;
 3. the Riccati closed loop: Aliengo, h=16, TROTTING16, 1.2 m/s, B=4096
    jittered scenarios, 3000 ticks with ``solver="riccati"``; every solve
    tick must launch the kernel and >= 99% of scenarios hold the trot band;
-4. Riccati times with CUDA events: one h=16 solve at B=4096 (kernel and
-   plain) and one full 20-tick control period;
+4. Riccati times with CUDA events at h=16, B=4096: the kernel alone and
+   its plain version alone on operands prepared once, one whole
+   ``solve_batch`` (setup and layout included), and one full 20-tick
+   control period;
 5. condensed kernels vs plain: on random condensed problems made by the
    port's ``build_qp`` at h=16, B=4096 and B=130, cold and warm-started:
    the invert kernel's f64 residual max|Kinv K - I| within 2x of the plain
@@ -139,39 +142,75 @@ def random_problem(B, h, seed, dev, mass_spread=0.0):
 def riccati_flops(h: int, iterations: int) -> float:
     """FP32 operations of one scenario of the Riccati-ADMM kernel, counted
     from csrc/riccati_admm.cuh: per step the factorization's products and
-    12x12 Gauss-Jordan, per sweep and step the cone, affine and rollout work."""
+    12x12 Gauss-Jordan (columns right of the pivot only), per sweep and step
+    the cone, affine and rollout work."""
     ns, nu = 13, 12
+    gauss_jordan = sum(2 * nu - 1 - kk for kk in range(nu)) * (1 + 2 * (nu - 1))
     factor = 2 * (2 * ns * ns * ns + ns * nu * ns + nu * nu * ns + 2 * nu * ns * ns
-                  + nu * ns * nu + ns * ns * nu) + 2 * nu * nu * 2 * nu
+                  + nu * ns * nu + ns * ns * nu) + gauss_jordan
     sweep = (2 * (nu * ns + nu * nu + ns * (nu + ns) + nu * ns + ns * (ns + nu))
              + 4 * 40 + 20 * 10)
     return float(h * factor + iterations * h * sweep)
+
+
+@dataclasses.dataclass
+class RiccatiProblem:
+    """A random h=16 problem as ``riccati.solve_batch`` hands it to the kernel."""
+    mpc: object
+    robot: object
+    cfg: object
+    table: torch.Tensor
+    args: tuple           # Ad, Bd, x_t, X_ref, hu, m_u, gate, l, u_bnd
+    init: tuple | None    # warm start (u0, z0, y0)
+    rho_b: torch.Tensor | None
+
+    def kernel(self):
+        return riccati_cuda.factor_iterate(*self.args, self.mpc, self.cfg, self.init,
+                                           rho_b=self.rho_b)
+
+    def plain(self):
+        Ad, Bd, x_t, X_ref, hu, m_u, gate, l, u_bnd = self.args
+        fac = riccati.lqr_factor(Ad, Bd, hu, m_u, self.mpc)
+        return riccati.iterate(fac, Ad, x_t, X_ref, gate, l, u_bnd, self.mpc, self.cfg,
+                               self.init, rho_b=self.rho_b)
+
+    def operands(self):
+        return riccati_cuda.operands(*self.args, self.mpc, self.cfg, self.init,
+                                     rho_b=self.rho_b)
+
+
+def riccati_problem(B, case, dev, seed=3) -> RiccatiProblem:
+    """Phase 2's cases: ``cold`` (default config), ``warm`` (a 20 N random
+    warm start), ``rho`` (in-loop config: per-scenario rho over a 30% mass
+    spread); and ``inloop`` (in-loop config, nominal mass), phase 4's."""
+    mpc, robot, Ad, Bd, x_t, X_ref, table, u0 = random_problem(
+        B, HORIZON, seed=seed, dev=dev, mass_spread=0.3 if case == "rho" else 0.0)
+    cfg = (riccati.RiccatiConfig.inloop() if case in ("rho", "inloop")
+           else riccati.RiccatiConfig())
+    h = mpc.horizon
+    m_u, gate = riccati.step_gating(table, h)
+    l, u_bnd = riccati.step_bounds(table, robot.fz_max, h)
+    rho_b = cfg.rho * riccati.rho_scale_from_Bd(Bd, mpc) if cfg.normalize else None
+    hu = riccati.input_cost_diag(m_u, mpc, cfg, rho_b=rho_b)
+    init = None
+    if case == "warm":
+        z0 = torch.zeros_like(gate)
+        init = (u0, z0, z0.clone())
+    return RiccatiProblem(mpc, robot, cfg, table, (Ad, Bd, x_t, X_ref, hu, m_u, gate, l, u_bnd),
+                          init, rho_b)
 
 
 def phase_kernel_vs_plain(dev):
     worst = 0.0
     for B in (B_MAIN, B_RAGGED):
         for case in ("cold", "warm", "rho"):
-            mpc, robot, Ad, Bd, x_t, X_ref, table, u0 = random_problem(
-                B, HORIZON, seed=3, dev=dev, mass_spread=0.3 if case == "rho" else 0.0)
-            cfg = riccati.RiccatiConfig.inloop() if case == "rho" else riccati.RiccatiConfig()
-            h = mpc.horizon
-            m_u, gate = riccati.step_gating(table, h)
-            l, u_bnd = riccati.step_bounds(table, robot.fz_max, h)
-            rho_b = cfg.rho * riccati.rho_scale_from_Bd(Bd, mpc) if cfg.normalize else None
-            hu = riccati.input_cost_diag(m_u, mpc, cfg, rho_b=rho_b)
-            init = None
-            if case == "warm":
-                z0 = torch.zeros_like(gate)
-                init = (u0, z0, z0.clone())
-            if rho_b is not None:
-                check(float(rho_b.max() / rho_b.min()) > 1.5, "rho case: rho_b does not vary")
-            U_k, y_k = riccati_cuda.factor_iterate(
-                Ad, Bd, x_t, X_ref, hu, m_u, gate, l, u_bnd, mpc, cfg, init, rho_b=rho_b)
-            fac = riccati.lqr_factor(Ad, Bd, hu, m_u, mpc)
-            U_p, y_p = riccati.iterate(fac, Ad, x_t, X_ref, gate, l, u_bnd, mpc, cfg,
-                                       init, rho_b=rho_b)
+            p = riccati_problem(B, case, dev)
+            if case == "rho":
+                check(float(p.rho_b.max() / p.rho_b.min()) > 1.5, "rho case: rho_b does not vary")
+            U_k, y_k = p.kernel()
+            U_p, y_p = p.plain()
             torch.cuda.synchronize()
+            h = p.mpc.horizon
             check(tuple(U_k.shape) == (B, h, 12) and tuple(y_k.shape) == (B, h, 20),
                   f"kernel output shapes {tuple(U_k.shape)}, {tuple(y_k.shape)}")
             check(bool(torch.isfinite(U_k).all() and torch.isfinite(y_k).all()),
@@ -274,24 +313,38 @@ def time_period(loop_state, solver):
 
 
 def phase_times(dev, card, loop_state):
-    mpc, robot, Ad, Bd, x_t, X_ref, table, _ = random_problem(B_MAIN, HORIZON, 5, dev)
-    cfg = riccati.RiccatiConfig.inloop()
-    solve = lambda backend: riccati.solve_batch(
-        Ad, Bd, x_t, X_ref, table, robot.fz_max, mpc, cfg, backend=backend)
-    ms_kernel = cuda_ms(lambda: solve("cuda"))
-    ms_plain = cuda_ms(lambda: solve("torch"))
-    print(f"phase 4: one h={HORIZON} Riccati-ADMM solve at B={B_MAIN} (inloop, 40 it): "
-          f"kernel {ms_kernel:.3f} ms, plain PyTorch {ms_plain:.3f} ms [{card}]", flush=True)
+    """Kernel alone (``riccati_cuda.launch`` on operands prepared once) and
+    plain alone (``lqr_factor`` + ``iterate`` on the same inputs), in turns
+    plain, kernel, kernel, plain; then the whole ``solve_batch`` (gating,
+    bounds, input costs and the wrapper's layout included) and one period."""
+    p = riccati_problem(B_MAIN, "inloop", dev, seed=5)
+    mpc, cfg, h = p.mpc, p.cfg, p.mpc.horizon
+    ops = p.operands()
+    lib = _build.load("riccati_admm").lib
+    stream = torch.cuda.current_stream().cuda_stream
+    kernel = lambda: riccati_cuda.launch(lib, ops, h, cfg, stream)
+    cuda_ms(p.plain, reps=3)
+    cuda_ms(kernel, reps=3)
+    ms_kernel = cuda_ms(kernel)
+    ms_plain = cuda_ms(p.plain, reps=5)
+    Ad, Bd, x_t, X_ref = p.args[:4]
+    ms_solve = cuda_ms(lambda: riccati.solve_batch(Ad, Bd, x_t, X_ref, p.table, p.robot.fz_max,
+                                                   mpc, cfg, backend="cuda"))
+    # Inputs read once and outputs written once (csrc/riccati_admm.cu's operands).
+    floats = 13 * 13 + 13 * 12 + 2 * h * 12 + 1 + 13 * h + 13 + 3 * 20 * h + (12 + 40) * h \
+        + (12 + 20) * h
+    bound, by = bound_ms(B_MAIN * riccati_flops(h, cfg.iterations), 4.0 * B_MAIN * floats)
+    print(f"phase 4: h={HORIZON} Riccati-ADMM at B={B_MAIN} (inloop, {cfg.iterations} it): "
+          f"kernel alone {ms_kernel:.3f} ms, plain alone (lqr_factor + iterate) "
+          f"{ms_plain:.3f} ms, bound {bound:.3f} ms ({by}) [{card}]", flush=True)
+    print(f"phase 4: one h={HORIZON} Riccati solve_batch at B={B_MAIN} (kernel backend, setup "
+          f"and layout included): {ms_solve:.3f} ms [{card}]", flush=True)
     ms_period = time_period(loop_state, "riccati")
     print(f"phase 4: one {PERIOD}-tick control period (1 solve tick) at B={B_MAIN}, "
           f"solver=riccati: {ms_period:.3f} ms against the 20 ms real-time budget [{card}]",
           flush=True)
-    # Inputs read once and outputs written once (csrc/riccati_admm.cu's operands).
-    h = HORIZON
-    floats = 13 * 13 + 13 * 12 + 2 * h * 12 + 1 + 13 * h + 13 + 3 * 20 * h + (12 + 40) * h \
-        + (12 + 20) * h
-    bound = bound_ms(B_MAIN * riccati_flops(h, cfg.iterations), 4.0 * B_MAIN * floats)
-    return ms_kernel, ms_plain, bound
+    return dict(ms=ms_kernel, plain_ms=ms_plain, solve_ms=ms_solve, bound_ms=bound,
+                bound_by=by)
 
 
 # ---------------------------------------------------------------------------
@@ -541,13 +594,18 @@ def main() -> int:
           f"(CUDA {torch.version.cuda}); {len(libs)} kernel libraries built in parallel in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     for name, lib in libs.items():
-        ptxas = [l.split(":", 1)[1].strip() for l in lib.log.splitlines() if "Used" in l]
+        ptxas = [l.split(":", 1)[1].strip() if "Used" in l else l.strip()
+                 for l in lib.log.splitlines() if "Used" in l or "spill" in l]
         print(f"phase 1: {name}: nvcc {lib.build_seconds:.1f} s into "
               f"{os.path.relpath(lib.path, here)}; ptxas: {'; '.join(ptxas)}", flush=True)
+    occ = riccati_cuda.occupancy(libs["riccati_admm"].lib, HORIZON)
+    print(f"phase 1: riccati_admm at h={HORIZON}: {occ['scenarios_per_sm']} scenarios resident "
+          f"per SM, {occ['scenarios_per_block']} per block, {occ['smem_per_block']} B of "
+          f"dynamic shared memory per block", flush=True)
 
     max_err = phase_kernel_vs_plain(dev)
     ric_launches, loop_state = phase_closed_loop(dev, "riccati", 3)
-    ms_kernel, ms_plain, (ric_bound, ric_by) = phase_times(dev, card, loop_state)
+    ric_times = phase_times(dev, card, loop_state)
     del loop_state
     cond_err = phase_condensed_vs_plain(dev)
     cond_launches, loop_state = phase_closed_loop(dev, "admm_fast", 6)
@@ -558,8 +616,7 @@ def main() -> int:
         "source": "pympc_quadruped_tpu_torch/csrc/riccati_admm.cu",
         "replaces": "pympc_quadruped_tpu/ops/qp/riccati_pallas.py:116",
         "launches": ric_launches["riccati_admm"], "max_abs_err": max_err,
-        "err": "max|dU| [N] vs plain", "ms": ms_kernel, "plain_ms": ms_plain,
-        "bound_ms": ric_bound, "bound_by": ric_by, "library_ms": None,
+        "err": "max|dU| [N] vs plain", **ric_times, "library_ms": None,
     }]
     replaces = {"invert_spd": 242, "iterate": 38, "iterate_fused": 374, "solve_full": 417}
     errs = {"invert_spd": "f64 residual ratio kernel/plain (bar 2)",

@@ -32,7 +32,9 @@ _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlon
 # Every C launcher of csrc/, with its argument types; each library binds the
 # ones it exports.  Pointers and the stream are c_void_p, ints c_int.
 SIGNATURES = {
-    "riccati_admm_launch": ([_P] * 18 + [_I] * 3 + [_F] * 2 + [_P], _I),
+    "riccati_admm_launch": ([_P] * 17 + [_I] * 3 + [_F] * 2 + [_P], _I),
+    "riccati_admm_max_horizon": ([], _I),
+    "riccati_admm_occupancy": ([_I, _P], _I),
     "admm_workspace_floats": ([_I] * 3, _L),
     "admm_invert_launch": ([_P] * 3 + [_I] * 3 + [_P], _I),
     "admm_iterate_launch": ([_P] * 13 + [_I] * 4 + [_F] * 2 + [_P], _I),

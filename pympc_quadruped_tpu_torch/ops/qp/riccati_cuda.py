@@ -1,10 +1,13 @@
 """Wrapper of the hand-written CUDA Riccati-ADMM kernel.
 
 Replaces the TPU kernel ``pympc_quadruped_tpu/ops/qp/riccati_pallas.py::
-_solve_kernel`` (entry ``factor_iterate``).  The kernel
-(``csrc/riccati_admm.cu``, arithmetic in ``csrc/riccati_admm.cuh``) runs one
-thread per scenario on a batch-minor ``(rows, B)`` layout; its source note
-says what bounds it on the H100 and what the design does about that.
+_solve_kernel`` (wrapper ``_solve`` :310, ``pl.pallas_call`` :321; entry
+``factor_iterate``).  The kernel (``csrc/riccati_admm.cu``, arithmetic in
+``csrc/riccati_admm.cuh``) runs one 16-lane group per scenario, several
+scenarios per block, with each scenario's factors and iteration state in
+shared memory; its source note says what bounds it on the H100 and what the
+design does about that.  It reads the batch-major ``(B, ...)`` operands as
+they are, with no scratch and no transposes.
 
 :func:`factor_iterate` has the signature and returns of the JAX entry:
 batch-major operands in, ``(B,h,12)`` raw U and ``(B,h,20)`` duals out.  On
@@ -13,6 +16,8 @@ CPU tensors it runs the plain version (``riccati.lqr_factor`` +
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from pympc_quadruped_tpu_torch import _build
@@ -20,14 +25,13 @@ from pympc_quadruped_tpu_torch.models.mpc import NUM_INPUT, NUM_STATE, MpcParams
 from pympc_quadruped_tpu_torch.ops.qp import riccati
 
 NS, NU, RPS = NUM_STATE, NUM_INPUT, riccati.ROWS_PER_STEP
-SCRATCH_ROWS_PER_STEP = NS * NU + NU * NU + NU + RPS   # csrc/riccati_admm.cuh
 
 #: Kernel launches since import (or since a caller reset it to 0).
 LAUNCHES = 0
 
 # Launcher argument order (csrc/riccati_admm.cu::riccati_admm_launch).
 _ARGS = ("A", "Bd", "hu", "mask", "q2", "mu", "rho", "qx", "xt", "gate",
-         "lo", "hi", "u0", "z0", "y0", "U", "Y", "scratch")
+         "lo", "hi", "u0", "z0", "y0", "U", "Y")
 
 
 def _check(name, t, shape, device):
@@ -43,8 +47,8 @@ def _check(name, t, shape, device):
 
 def operands(Ad, Bd, x_t, X_ref, hu, m_u, gate, l, u_bnd, mpc: MpcParams,
              cfg: riccati.RiccatiConfig, init=None, rho_b=None) -> dict:
-    """Check the batch-major operands and lay them out batch-minor
-    ``(rows, B)`` for the kernel, with its outputs and scratch allocated."""
+    """Check the batch-major operands and hand them to the kernel as they
+    are (contiguous), with its outputs allocated."""
     B, h = x_t.shape[0], mpc.horizon
     dev = x_t.device
     for name, t, shape in [
@@ -60,36 +64,38 @@ def operands(Ad, Bd, x_t, X_ref, hu, m_u, gate, l, u_bnd, mpc: MpcParams,
     if rho_b is not None:
         _check("rho_b", rho_b, (B,), dev)
 
-    def bm(a, rows):
-        return a.reshape(B, rows).T.contiguous()
-
     f32 = dict(dtype=torch.float32, device=dev)
     ops = {
-        "A": bm(Ad, NS * NS), "Bd": bm(Bd, NS * NU),
-        "hu": bm(hu, h * NU), "mask": bm(m_u, h * NU),
+        "A": Ad.contiguous(), "Bd": Bd.contiguous(),
+        "hu": hu.contiguous(), "mask": m_u.contiguous(),
         "q2": (2.0 * mpc.q_diag).to(**f32).contiguous(),
         "mu": mpc.friction_coef.to(**f32).reshape(1).contiguous(),
-        "rho": (torch.full((1, B), cfg.rho, **f32) if rho_b is None
-                else rho_b.reshape(1, B).contiguous()),
-        "qx": bm(-2.0 * mpc.q_diag * X_ref, h * NS), "xt": bm(x_t, NS),
-        "gate": bm(gate, h * RPS), "lo": bm(l, h * RPS), "hi": bm(u_bnd, h * RPS),
+        "rho": (torch.full((B,), cfg.rho, **f32) if rho_b is None else rho_b.contiguous()),
+        "qx": (-2.0 * mpc.q_diag * X_ref).contiguous(), "xt": x_t.contiguous(),
+        "gate": gate.contiguous(), "lo": l.contiguous(), "hi": u_bnd.contiguous(),
     }
     if init is None:
-        ops["u0"] = torch.zeros((h * NU, B), **f32)
-        ops["z0"] = torch.zeros((h * RPS, B), **f32)
-        ops["y0"] = torch.zeros((h * RPS, B), **f32)
+        ops["u0"] = torch.zeros((B, h, NU), **f32)
+        ops["z0"] = torch.zeros((B, h, RPS), **f32)
+        ops["y0"] = torch.zeros((B, h, RPS), **f32)
     else:
-        ops["u0"], ops["z0"], ops["y0"] = (bm(a, h * r) for a, r in zip(init, (NU, RPS, RPS)))
-    ops["U"] = torch.empty((h * NU, B), **f32)
-    ops["Y"] = torch.empty((h * RPS, B), **f32)
-    ops["scratch"] = torch.empty((h * SCRATCH_ROWS_PER_STEP, B), **f32)
+        ops["u0"], ops["z0"], ops["y0"] = (a.contiguous() for a in init)
+    ops["U"] = torch.empty((B, h, NU), **f32)
+    ops["Y"] = torch.empty((B, h, RPS), **f32)
     return ops
 
 
 def launch(lib, ops: dict, h: int, cfg: riccati.RiccatiConfig, stream=None) -> None:
     """Call ``riccati_admm_launch`` of a bound library on prepared operands;
-    raise on a non-zero return (a refused launch never runs)."""
-    B = ops["xt"].shape[1]
+    raise on a horizon whose two scenarios of a warp do not fit in a block's
+    shared memory (the library's ``riccati_admm_max_horizon``) and on a
+    non-zero return (a refused launch never runs)."""
+    h_max = lib.riccati_admm_max_horizon()
+    if h > h_max:
+        raise ValueError(
+            f"riccati_admm: h={h} does not fit in a block's shared memory on sm_90 "
+            f"(the kernel takes h <= {h_max})")
+    B = ops["xt"].shape[0]
     for name in _ARGS:
         if not ops[name].is_contiguous():
             raise ValueError(f"{name}: kernel operands must be contiguous")
@@ -101,10 +107,21 @@ def launch(lib, ops: dict, h: int, cfg: riccati.RiccatiConfig, stream=None) -> N
         raise RuntimeError(f"riccati_admm launch failed: CUDA error {rc}")
 
 
+def occupancy(lib, h: int) -> dict:
+    """What the card keeps resident of the kernel at horizon ``h``: scenarios
+    per SM, dynamic shared memory bytes per block, scenarios per block."""
+    out = (ctypes.c_int * 3)()
+    rc = lib.riccati_admm_occupancy(h, ctypes.addressof(out))
+    if rc != 0:
+        raise RuntimeError(f"riccati_admm occupancy query failed: CUDA error {rc}")
+    return {"scenarios_per_sm": out[0], "smem_per_block": out[1],
+            "scenarios_per_block": out[2]}
+
+
 def unpack(ops: dict, h: int):
-    """Batch-minor kernel outputs -> (B,h,12) U, (B,h,20) y."""
-    B = ops["xt"].shape[1]
-    return ops["U"].T.reshape(B, h, NU), ops["Y"].T.reshape(B, h, RPS)
+    """Kernel outputs -> (B,h,12) U, (B,h,20) y."""
+    B = ops["xt"].shape[0]
+    return ops["U"].reshape(B, h, NU), ops["Y"].reshape(B, h, RPS)
 
 
 def factor_iterate(Ad, Bd, x_t, X_ref, hu, m_u, gate, l, u_bnd, mpc: MpcParams,

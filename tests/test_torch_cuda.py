@@ -44,6 +44,22 @@ def test_cuda_kernel_matches_plain(cuda_device, B):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("h", [3, 10])
+@pytest.mark.parametrize("B", [1, 33])
+def test_cuda_kernel_matches_plain_short_horizons(cuda_device, h, B):
+    """Kernel vs plain version at other horizons and at batches that leave
+    half a warp (B=1) and a block partly idle (B=33), with the same bars."""
+    mpc, robot, Ad, Bd, x_t, X_ref, table, *_ = random_problem(B, h, seed=7, dev=cuda_device)
+    U_k = riccati.solve_batch(Ad, Bd, x_t, X_ref, table, robot.fz_max, mpc, backend="cuda")
+    U_p = riccati.solve_batch(Ad, Bd, x_t, X_ref, table, robot.fz_max, mpc, backend="torch")
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(U_k).all())
+    fz_k, fz_p = U_k.reshape(B, h, 4, 3)[:, 0, :, 2], U_p.reshape(B, h, 4, 3)[:, 0, :, 2]
+    assert float(((fz_k - fz_p).abs() / fz_p.abs().clamp(min=20.0)).max()) < 0.02
+    assert float((U_k - U_p).abs().max()) < 1.0
+
+
+@pytest.mark.cuda
 def test_cuda_closed_loop_goes_through_the_kernel(cuda_device):
     """40 ticks of the h=16 trot at B=64 on the card with the Riccati
     solver: one launch per solve tick, finite torques, forces on the stance

@@ -8,8 +8,9 @@
   (test_riccati_pallas.py:77): exact-f32 FMA chains against matmul
   reductions differ by reassociation noise only.
 - The CUDA kernel's own per-scenario code (csrc/riccati_admm.cuh), built
-  for the CPU with the host C++ compiler and driven through the wrapper's
-  layout and ctypes binding, against the same JAX references and bar.
+  for the CPU with the host C++ compiler (one lane per scenario) and
+  driven through the wrapper's batch-major operands and ctypes binding,
+  against the same JAX references and bar, also at B=1 and B=33.
 - ``engine.solve_scenarios(solver="riccati")`` at h=16 against the JAX
   engine and the f64 oracle, with the bars of test_riccati.py:124-142.
 
@@ -17,6 +18,7 @@ The card-only kernel tests live in tests/test_torch_cuda.py, which imports
 no JAX: the machine with the card has none.
 """
 import functools
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -52,9 +54,10 @@ def _t(a):
     return torch.tensor(np.asarray(a))
 
 
-def _case(name):
-    """The JAX problem, its step data, and the same numbers for the port."""
-    B, h, iters, seed = CASES[name]
+def _case(name, shape=None):
+    """The JAX problem, its step data, and the same numbers for the port;
+    ``shape`` (B, h, iterations, seed) overrides the case's own."""
+    B, h, iters, seed = shape or CASES[name]
     cfg_kw = dict(iterations=iters, rho=4.0e-4) if name == "rho" else dict(iterations=iters)
     jcfg, cfg = jriccati.RiccatiConfig(**cfg_kw), riccati.RiccatiConfig(**cfg_kw)
     mpc_j, robot_j, Ad, Bd, x_t, X_ref, table = _problem(B, h, seed=seed)
@@ -127,6 +130,43 @@ def test_plain_matches_jax(case, reference):
 def test_kernel_code_on_host_matches_jax(case, host_kernel):
     j, p = _case(case)
     _assert_close(_port_host_kernel(p, host_kernel), _jax_jnp(j))
+
+
+@pytest.mark.parametrize("B", [1, 33])
+def test_kernel_code_on_host_odd_batch_matches_jax(B, host_kernel):
+    """The kernel's arithmetic on batches that leave a half-warp (B=1) or a
+    block partly idle (B=33) on the card, against JAX jnp at h=3."""
+    j, p = _case("cold", shape=(B, 3, 10, 21 + B))
+    _assert_close(_port_host_kernel(p, host_kernel), _jax_jnp(j))
+
+
+def test_wrapper_rejects_horizon_beyond_shared_memory(host_kernel):
+    """A horizon whose scenario does not fit in one block's shared memory
+    raises with a message; nothing falls back."""
+    assert host_kernel.riccati_admm_max_horizon() >= 16
+    with pytest.raises(ValueError, match="shared memory"):
+        riccati_cuda.launch(host_kernel, {}, 200, riccati.RiccatiConfig())
+
+
+def test_kernel_code_sixteen_lanes_matches_one_lane(host_kernel, tmp_path):
+    """The card's lane split (tests/riccati_admm_lanes.cpp: 16 host threads
+    a scenario, a barrier for the warp barrier) gives bitwise the one-lane
+    host build's U and duals at h=16, warm-started with per-scenario rho."""
+    lanes = _build.build_host(str(Path(__file__).parent / "riccati_admm_lanes.cpp"), tmp_path)
+    mpc_j, robot_j, Ad, Bd, x_t, X_ref, table = _problem(3, 16, seed=4)
+    mpc = convert.mpc_params(convert.as_arrays(mpc_j), device="cpu")
+    cfg = riccati.RiccatiConfig.inloop()._replace(iterations=5)
+    Ad, Bd, x_t, X_ref, table = map(_t, (Ad, Bd, x_t, X_ref, table))
+    m_u, gate = riccati.step_gating(table, 16)
+    l, u_bnd = riccati.step_bounds(table, aliengo(device="cpu").fz_max, 16)
+    rho_b = cfg.rho * riccati.rho_scale_from_Bd(Bd, mpc)
+    hu = riccati.input_cost_diag(m_u, mpc, cfg, rho_b=rho_b)
+    u0 = torch.tensor(np.random.default_rng(2).normal(scale=20.0, size=(3, 16, 12)),
+                      dtype=torch.float32)
+    p = dict(args=(Ad, Bd, x_t, X_ref, hu, m_u, gate, l, u_bnd), mpc=mpc, cfg=cfg,
+             init=(u0, torch.zeros_like(gate), torch.zeros_like(gate)), rho_b=rho_b)
+    for a, b in zip(_port_host_kernel(p, lanes), _port_host_kernel(p, host_kernel)):
+        assert torch.equal(a, b)
 
 
 def test_kernel_code_on_host_h16_matches_plain(host_kernel):
