@@ -7,8 +7,8 @@ result):
 
 1. device and build: a CUDA card, its name and power limit, every kernel
    built from ``pympc_quadruped_tpu_torch/csrc`` (one nvcc per source, in
-   parallel) with its ptxas report, and the Riccati kernel's resident
-   scenarios per SM and shared memory per block;
+   parallel) with its ptxas report, and the Riccati and invert kernels'
+   resident scenarios per SM and shared memory per block;
 2. Riccati kernel vs plain: the Riccati-ADMM kernel against its plain
    PyTorch version on the same random h=16 problems, at B=4096 and at a
    ragged B=130: cold, warm-started, and with per-scenario rho;
@@ -40,7 +40,8 @@ result):
    invert and iterate kernels must each launch once per solve tick;
 7. condensed times with CUDA events: one in-loop h=16 solve at B=4096 per
    backend, each kernel alone against its plain version (and the invert
-   kernel against ``torch.linalg.inv``), one 20-tick period.
+   kernel against ``torch.linalg.inv``), the invert kernel alone without
+   its Newton-Schulz step, one 20-tick period.
 
 The last two lines are the kernel summary and the device record.  Imports
 torch, numpy and the port only.
@@ -364,14 +365,14 @@ class CondensedProblem:
     Su: torch.Tensor      # (B,13h,n): the predicted states' response to U
 
 
-def condensed_problem(B, seed, dev) -> CondensedProblem:
-    """Trot-like condensed h=16 problems from the port's build_qp, made with
-    numpy: jittered states near 1.2 m/s, a forward-moving reference, the
-    TROTTING16 stance table at a random phase per scenario.  Also a warm
+def condensed_problem(B, seed, dev, h=HORIZON) -> CondensedProblem:
+    """Trot-like condensed problems (h=16 unless given) from the port's
+    build_qp, made with numpy: jittered states near 1.2 m/s, a
+    forward-moving reference, the TROTTING16 stance table at a random phase
+    per scenario.  Also a warm
     start in problem units: a converged plain solve perturbed by 5 N."""
     rng = np.random.default_rng(seed)
     T = lambda a: torch.tensor(np.asarray(a), dtype=torch.float32, device=dev)
-    h = HORIZON
     mpc = default_mpc_params(h, device=dev)
     robot = tree.tile(aliengo(device=dev), B)
     yaw = rng.uniform(-0.3, 0.3, B)
@@ -568,11 +569,33 @@ def phase_condensed_times(dev, card, loop_state):
         lib = f", torch.linalg.inv {t_lib:.3f} ms" if t_lib else ""
         print(f"phase 7: kernel {name} alone at B={B}, h={HORIZON}: {t_kernel:.3f} ms, plain "
               f"{t_plain:.3f} ms{lib}; bound {bound:.3f} ms ({by}) [{card}]", flush=True)
+    # The invert kernel's recursion alone: no Newton-Schulz step.
+    t_ns0 = cuda_ms(lambda: admm_cuda.invert_spd(kkt.K, 0))
+    times["invert_spd"]["ns0_ms"] = t_ns0
+    print(f"phase 7: kernel invert_spd alone at B={B}, h={HORIZON}, ns_iters=0 (the Schur "
+          f"recursion): {t_ns0:.3f} ms, ns_iters={cfg.newton_schulz_iters}: "
+          f"{times['invert_spd']['ms']:.3f} ms [{card}]", flush=True)
     ms_period = time_period(loop_state, "admm_fast")
     print(f"phase 7: one {PERIOD}-tick control period (1 solve tick) at B={B}, "
           f"solver=admm_fast: {ms_period:.3f} ms against the 20 ms real-time budget [{card}]",
           flush=True)
     return times, launches
+
+
+def entry_report(log: str, kernel: str) -> str:
+    """ptxas's register and spill lines for one kernel's entry function,
+    and the largest spill store of any function in the library (the
+    kernel's out-of-line callees are shared by every kernel of it)."""
+    lines = log.splitlines()
+    mine, inside = [], False
+    for line in lines:
+        if "Compiling entry function" in line:
+            inside = kernel in line
+        elif inside and ("Used" in line or "spill" in line):
+            mine.append(line.split(":", 1)[1].strip() if "Used" in line else line.strip())
+    spills = [int(w[0]) for line in lines if "spill stores" in line
+              for w in [line.split("bytes spill stores")[0].split(",")[-1].split()]]
+    return f"{'; '.join(mine)}; largest spill store in the library {max(spills, default=0)} B"
 
 
 def main() -> int:
@@ -602,6 +625,11 @@ def main() -> int:
     print(f"phase 1: riccati_admm at h={HORIZON}: {occ['scenarios_per_sm']} scenarios resident "
           f"per SM, {occ['scenarios_per_block']} per block, {occ['smem_per_block']} B of "
           f"dynamic shared memory per block", flush=True)
+    occ = admm_cuda.invert_occupancy(libs["admm"].lib, 12 * HORIZON)
+    print(f"phase 1: admm_invert_kernel at h={HORIZON}: {occ['blocks_per_sm']} blocks (scenarios) "
+          f"resident per SM, {occ['smem_per_block']} B of dynamic shared memory per block, "
+          f"{libs['admm'].lib.admm_workspace_floats(0, 12 * HORIZON, 0)} workspace floats per "
+          f"scenario; ptxas: {entry_report(libs['admm'].log, 'admm_invert_kernel')}", flush=True)
 
     max_err = phase_kernel_vs_plain(dev)
     ric_launches, loop_state = phase_closed_loop(dev, "riccati", 3)

@@ -36,6 +36,8 @@ SIGNATURES = {
     "riccati_admm_max_horizon": ([], _I),
     "riccati_admm_occupancy": ([_I, _P], _I),
     "admm_workspace_floats": ([_I] * 3, _L),
+    "admm_max_n": ([], _I),
+    "admm_invert_occupancy": ([_I, _P], _I),
     "admm_invert_launch": ([_P] * 3 + [_I] * 3 + [_P], _I),
     "admm_iterate_launch": ([_P] * 13 + [_I] * 4 + [_F] * 2 + [_P], _I),
     "admm_fused_launch": ([_P] * 14 + [_I] * 4 + [_F] * 2 + [_I, _P], _I),

@@ -4,10 +4,11 @@
 // scenario's matrices and split every loop as `for (e = lane; e < N; e +=
 // NL)`, with Team::sync() as the barrier between dependent steps.  The code
 // is plain C++ marked __host__ __device__: the CUDA kernels instantiate it
-// with NL = 256 and __syncthreads(); admm_host.cpp instantiates it with
-// NL = 1 and a no-op barrier, so a host compiler runs the same arithmetic on
-// the CPU.  Each output element of a matrix product is one lane's fmaf chain
-// over k in increasing order, so the result does not depend on NL.
+// with NL = 512 (invert) or 256 (the others) and __syncthreads();
+// admm_host.cpp instantiates it with NL = 1 and a no-op barrier, so a host
+// compiler runs the same arithmetic on the CPU.  Each output element of a
+// matrix product is one lane's fmaf chain over k in increasing order, so
+// the result does not depend on NL or on how a product is tiled.
 //
 // Math (JAX package, pympc_quadruped_tpu/ops/qp/admm_pallas.py, and the
 // port's plain versions in pympc_quadruped_tpu_torch/ops/qp/admm_fast.py):
@@ -30,7 +31,7 @@
 #define __device__
 #endif
 
-// The matrix products and each recursion level stay out-of-line: inlined,
+// The staged products and each recursion level stay out-of-line: inlined,
 // the level templates multiply the code (nvcc took minutes and 190
 // registers a thread), while calls keep it small with a static stack.
 #ifdef __CUDACC__
@@ -41,8 +42,8 @@
 
 namespace admm {
 
-// Matrix products: TM x TM output tiles, k in chunks of TK, each of the
-// tile's 256 (TM/MT)^2 "virtual threads" owning an MT x MT micro-tile.
+// Staged products (gemm): TM x TM output tiles, k in chunks of TK, each of
+// the tile's 256 (TM/MT)^2 "virtual threads" owning an MT x MT micro-tile.
 constexpr int TM = 64;
 constexpr int TK = 32;
 constexpr int MT = 4;
@@ -78,49 +79,114 @@ __host__ __device__ inline float clip(float v, float lo, float hi) {
   return v != v ? v : c;
 }
 
-// Floats of the Schur recursion's W stack for an n x n inverse: one m x r
-// block per level (both children of a level reuse the next level's block,
-// and the larger child, r >= m, needs the most below it).
-__host__ __device__ inline long long stack_floats(int n) {
-  long long s = 0;
-  for (; n > GJ_LEAF; n -= n / 2) s += (long long)(n / 2) * (n - n / 2);
-  return s;
-}
+// Columns of the Newton-Schulz panel: T[:, J] = 2I[:, J] - K X[:, J], one
+// product tile wide.
+constexpr int PANEL = TM;
 
-// Shared-memory floats of a kernel's block with Kinv (n x (n+1)) on chip.
+// The in-place inverse's buffer X (n x (n+1): rows padded by one float, so
+// a warp's reads down a column, and the iterate sweeps' row reads, fall in
+// 32 banks) and the Newton-Schulz panel (n x PANEL).
+__host__ __device__ inline long long x_floats(int n) { return (long long)n * (n + 1); }
+__host__ __device__ inline long long panel_floats(int n) { return (long long)n * PANEL; }
+
+// Shared-memory floats of a kernel's block with its buffers on chip: the
+// product tiles, X (Kinv of the iterate, fused and full kernels), the
+// panel, and the sweeps' vectors.
 __host__ __device__ inline long long smem_floats(int kernel, int n, int m) {
-  const long long kinv = (long long)n * (n + 1);
+  const long long inv = SCRATCH_FLOATS + x_floats(n) + panel_floats(n);
   switch (kernel) {
-    case ITERATE: return kinv + 5LL * n + 6LL * m;
-    case FUSED:   return SCRATCH_FLOATS + kinv + 5LL * n + 6LL * m;
-    case FULL:    return SCRATCH_FLOATS + kinv + 6LL * n + 6LL * m;
-    default:      return SCRATCH_FLOATS;
+    case ITERATE: return x_floats(n) + 5LL * n + 6LL * m;
+    case FUSED:   return inv + 5LL * n + 6LL * m;
+    case FULL:    return inv + 6LL * n + 6LL * m;
+    default:      return inv;
   }
 }
 
-// Whether Kinv fits in shared memory: at h=16 it does; from h=19 (fused,
-// full) or h=20 (iterate) it does not, and the kernels keep it in device
-// memory instead.
-__host__ __device__ inline bool kinv_on_chip(int kernel, int n, int m) {
+// Whether a kernel's buffers fit in one block's shared memory.  At h <= 16
+// they do for every kernel, and the inverting kernels run one block per
+// SM.  From h = 17 X and the panel of the invert, fused and full kernels
+// move to the device-memory workspace (the same code, other pointers);
+// from h = 20 the iterate kernel reads Kinv from device memory.
+__host__ __device__ inline bool on_chip(int kernel, int n, int m) {
   return smem_floats(kernel, n, m) * 4 <= SMEM_LIMIT;
 }
 
-__host__ __device__ inline long long smem_bytes(int kernel, int n, int m) {
-  const long long kinv = (long long)n * (n + 1);
-  const long long f = smem_floats(kernel, n, m);
-  return 4 * (kinv_on_chip(kernel, n, m) || kernel == INVERT ? f : f - kinv);
+// Floats that leave shared memory for the workspace when they do not fit
+// (the iterate kernel reads Kinv in place instead).
+__host__ __device__ inline long long moved_floats(int kernel, int n, int m) {
+  if (on_chip(kernel, n, m)) return 0;
+  return kernel == ITERATE ? x_floats(n) : x_floats(n) + panel_floats(n);
 }
 
-// Per-scenario device-memory workspace floats of each kernel.
+__host__ __device__ inline long long smem_bytes(int kernel, int n, int m) {
+  return 4 * (smem_floats(kernel, n, m) - moved_floats(kernel, n, m));
+}
+
+// Per-scenario device-memory workspace floats of each kernel: the fused
+// and full kernels' Newton-Schulz product R (n x n: it is read whole while
+// X is still needed, and X and R do not both fit on chip), the full
+// kernel's K, and X and the panel where they do not fit.  The invert
+// kernel writes R into its output.
 __host__ __device__ inline long long workspace_floats(int kernel, int n, int m) {
   const long long nn = (long long)n * n;
-  const long long kinv = kinv_on_chip(kernel, n, m) ? 0 : (long long)n * (n + 1);
   switch (kernel) {
-    case INVERT:  return 2 * nn + stack_floats(n);
-    case FUSED:   return 2 * nn + stack_floats(n) + kinv;
-    case FULL:    return 3 * nn + stack_floats(n) + kinv;
+    case INVERT:  return moved_floats(kernel, n, m);
+    case FUSED:   return nn + moved_floats(kernel, n, m);
+    case FULL:    return 2 * nn + moved_floats(kernel, n, m);
     default:      return 0;  // ITERATE reads Kinv in place when it is off chip
   }
+}
+
+// Where one scenario's buffers lie in the inverting kernels (invert,
+// fused, full), from its block's shared memory and its workspace: in
+// shared memory the product tiles, then X and the panel when OnChip, then
+// the vectors; in the workspace K (full), R (fused, full), then X and the
+// panel when they do not fit.
+struct Layout {
+  float *tiles, *X, *T, *vecs, *Kw, *R;
+};
+
+template <bool OnChip>
+__host__ __device__ inline Layout layout(int kernel, int n, float* smem, float* ws) {
+  const long long nn = (long long)n * n;
+  Layout l{smem, nullptr, nullptr, nullptr, nullptr, nullptr};
+  smem += SCRATCH_FLOATS;
+  if (kernel == FULL) { l.Kw = ws; ws += nn; }
+  if (kernel == FUSED || kernel == FULL) { l.R = ws; ws += nn; }
+  l.X = OnChip ? smem : ws;
+  l.T = l.X + x_floats(n);
+  l.vecs = OnChip ? l.T + panel_floats(n) : smem;
+  return l;
+}
+
+template <bool B>
+struct Placement {
+  static constexpr bool on_chip = B;
+};
+
+// f(layout, placement) with the placement a compile-time constant.  The
+// inverse's functions are instantiated per placement, so that in the
+// on-chip instantiation every pointer into X and the panel visibly comes
+// from shared memory, and the compiler emits shared-memory loads and
+// stores for them instead of generic ones (measured in PERF.md).
+template <class F>
+__host__ __device__ inline void with_layout(int kernel, int n, int m, float* smem, float* ws,
+                                            F f) {
+  if (on_chip(kernel, n, m))
+    f(layout<true>(kernel, n, smem, ws), Placement<true>{});
+  else
+    f(layout<false>(kernel, n, smem, ws), Placement<false>{});
+}
+
+// Two consecutive floats of a tile row: one 8-byte shared-memory load on
+// the card.
+__host__ __device__ inline void load2(const float* p, float* v) {
+#ifdef __CUDA_ARCH__
+  const float2 q = *reinterpret_cast<const float2*>(p);
+  v[0] = q.x; v[1] = q.y;
+#else
+  v[0] = p[0]; v[1] = p[1];
+#endif
 }
 
 // Four consecutive floats of a tile row: one 16-byte shared-memory load on
@@ -143,7 +209,7 @@ __host__ __device__ inline void load4(const float* p, float* v) {
 // chunk are in flight while the current one is multiplied.  Each lane
 // accumulates its micro-tiles in registers: per k, one 4-float load of A
 // and one of B feed 16 FMAs.
-template <int NL>
+template <int NL, bool OnChip>
 __host__ __device__ ADMM_NOINLINE void gemm(const Team<NL>& t, int M, int N, int Kd, float alpha,
                                             const float* A, int lda, bool tA,
                                             const float* B, int ldb, bool tB,
@@ -218,6 +284,157 @@ __host__ __device__ ADMM_NOINLINE void gemm(const Team<NL>& t, int M, int N, int
   t.sync();
 }
 
+// One block of outputs of gemm_resident: rows i0 + ty + 32 r (r < MR) and
+// columns j0 + tx + 16 c (c < MC) for the 32 x 16 virtual lanes (ty, tx).
+template <int NL, int MR, int MC>
+__host__ __device__ inline void resident_block(const Team<NL>& t, int i0, int j0, int M, int N,
+                                               int Kd, float alpha, const float* A,
+                                               long long sai, long long sak, const float* B,
+                                               long long sbk, long long sbj, float beta,
+                                               float* C, int ldc) {
+  constexpr int VPL = 512 / NL > 0 ? 512 / NL : 1;  // virtual lanes per lane
+  for (int v = 0; v < VPL; ++v) {
+    const int vt = t.lane + NL * v, ty = vt / 16, tx = vt % 16;
+    if (i0 + ty >= M || j0 + tx >= N) continue;
+    const float* ap[MR];
+    const float* bp[MC];
+    for (int r = 0; r < MR; ++r) {
+      const int gi = i0 + ty + 32 * r;
+      ap[r] = A + (gi < M ? gi : i0) * sai;
+    }
+    for (int c = 0; c < MC; ++c) {
+      const int gj = j0 + tx + 16 * c;
+      bp[c] = B + (gj < N ? gj : j0) * sbj;
+    }
+    float acc[MR][MC];
+    for (int r = 0; r < MR; ++r)
+      for (int c = 0; c < MC; ++c) acc[r][c] = 0.0f;
+#pragma unroll 4
+    for (int k = 0; k < Kd; ++k) {
+      float a[MR], b[MC];
+      for (int r = 0; r < MR; ++r) a[r] = ap[r][k * sak];
+      for (int c = 0; c < MC; ++c) b[c] = bp[c][k * sbk];
+      for (int r = 0; r < MR; ++r)
+        for (int c = 0; c < MC; ++c) acc[r][c] = fmaf(a[r], b[c], acc[r][c]);
+    }
+    for (int r = 0; r < MR; ++r)
+      for (int c = 0; c < MC; ++c) {
+        const int gi = i0 + ty + 32 * r, gj = j0 + tx + 16 * c;
+        if (gi < M && gj < N) {
+          const float val = alpha * acc[r][c];
+          float* cp = C + (long long)gi * ldc + gj;
+          *cp = beta == 0.0f ? val : *cp + val;
+        }
+      }
+  }
+}
+
+// C = beta C + alpha op(A) op(B), as gemm, with both operands read where
+// they lie: in the inverse's buffer, which is in shared memory on the
+// card.  No tiles are copied and no barrier is passed but the last.  The
+// block's lanes form a 32 x 16 grid over the output, each lane owning an
+// MR x MC micro-tile sized to the product (12 x 12: 1 x 1 ... 96 x 96:
+// 3 x 6), with rows 32 and columns 16 apart, so a warp's reads of op(A)
+// touch two addresses and its reads of op(B) sixteen in distinct banks
+// (rows of the buffer are n + 1 floats apart).  Each output is the same
+// fmaf chain over k in order as gemm's.
+template <int NL>
+__host__ __device__ inline void gemm_resident(const Team<NL>& t, int M, int N, int Kd,
+                                              float alpha, const float* A, int lda, bool tA,
+                                              const float* B, int ldb, bool tB, float beta,
+                                              float* C, int ldc) {
+  const long long sai = tA ? 1 : lda, sak = tA ? lda : 1;
+  const long long sbk = tB ? 1 : ldb, sbj = tB ? ldb : 1;
+  const int mr = (M + 31) / 32, mc = (N + 15) / 16;
+  if (mr <= 1 && mc <= 1)
+    resident_block<NL, 1, 1>(t, 0, 0, M, N, Kd, alpha, A, sai, sak, B, sbk, sbj, beta, C, ldc);
+  else if (mr <= 1 && mc <= 2)
+    resident_block<NL, 1, 2>(t, 0, 0, M, N, Kd, alpha, A, sai, sak, B, sbk, sbj, beta, C, ldc);
+  else if (mr <= 2 && mc <= 3)
+    resident_block<NL, 2, 3>(t, 0, 0, M, N, Kd, alpha, A, sai, sak, B, sbk, sbj, beta, C, ldc);
+  else if (mr <= 3 && mc <= 6)
+    resident_block<NL, 3, 6>(t, 0, 0, M, N, Kd, alpha, A, sai, sak, B, sbk, sbj, beta, C, ldc);
+  else
+    for (int i0 = 0; i0 < M; i0 += 32 * 6)
+      for (int j0 = 0; j0 < N; j0 += 16 * 6)
+        resident_block<NL, 6, 6>(t, i0, j0, M, N, Kd, alpha, A, sai, sak, B, sbk, sbj, beta, C,
+                                 ldc);
+  t.sync();
+}
+
+// C = alpha A B for the Newton-Schulz panels: A (M x Kd) row-major, B
+// (Kd x N, N <= PANEL) row-major, C (M x N).  The block's lanes tile rows
+// of PR_ROWS = 192 at once, as 32 x 16 virtual lanes each owning 6 rows and
+// 4 columns (rows 6 ty + r, columns tx + 16 c), so per k a lane's three
+// 8-byte reads of A and four reads of B feed 24 FMAs.  A is staged through
+// the tiles in chunks of PK columns with the next chunk in registers; B is
+// read where it lies (in shared memory on the card).  Each output is the
+// same fmaf chain over k in order as gemm's.
+constexpr int PK = 16, PR_ROWS = 192, PLDA = PR_ROWS + 4;
+static_assert(PK * PLDA <= SCRATCH_FLOATS, "panel chunk exceeds the tiles");
+template <int NL, bool OnChip>
+__host__ __device__ ADMM_NOINLINE void gemm_panel(const Team<NL>& t, int M, int N, int Kd,
+                                                  float alpha, const float* A, int lda,
+                                                  const float* B, int ldb, float* C, int ldc,
+                                                  float* smem) {
+  constexpr int VL = 512;                              // virtual lanes: 32 x 16
+  constexpr int VPL = VL / NL > 0 ? VL / NL : 1;
+  constexpr int RPL = PR_ROWS / 32, CPL = 4;           // 6 rows, 4 columns
+  constexpr int PF = PK * PR_ROWS / NL < 1 ? 1 : PK * PR_ROWS / NL;
+  float* As = smem;                                    // As[k][i] = A(i0 + i, k0 + k)
+  float pa[PF];
+  auto fetch = [&](int i0, int k0) {
+    for (int q = 0; q < PF; ++q) {
+      const int e = t.lane + NL * q, k = e % PK, i = e / PK;
+      const int gi = i0 + i, gk = k0 + k;
+      pa[q] = (i < PR_ROWS && gi < M && gk < Kd) ? A[(long long)gi * lda + gk] : 0.0f;
+    }
+  };
+  for (int i0 = 0; i0 < M; i0 += PR_ROWS) {
+    float acc[VPL][RPL][CPL];
+    for (int v = 0; v < VPL; ++v)
+      for (int r = 0; r < RPL; ++r)
+        for (int c = 0; c < CPL; ++c) acc[v][r][c] = 0.0f;
+    fetch(i0, 0);
+    for (int k0 = 0; k0 < Kd; k0 += PK) {
+      const int kc = Kd - k0 < PK ? Kd - k0 : PK;
+      t.sync();  // the previous chunk's readers are done
+      for (int q = 0; q < PF; ++q) {
+        const int e = t.lane + NL * q, k = e % PK, i = e / PK;
+        if (i < PR_ROWS) As[k * PLDA + i] = pa[q];
+      }
+      t.sync();
+      if (k0 + PK < Kd) fetch(i0, k0 + PK);
+      for (int v = 0; v < VPL; ++v) {
+        const int vt = t.lane + NL * v, ty = vt / 16, tx = vt % 16;
+        const float* bk = B + (long long)k0 * ldb + tx;
+        auto step = [&](int k) {
+          float a[RPL], b[CPL];
+          for (int r = 0; r < RPL; r += 2) load2(As + k * PLDA + ty * RPL + r, a + r);
+          for (int c = 0; c < CPL; ++c) b[c] = bk[(long long)k * ldb + 16 * c];
+          for (int r = 0; r < RPL; ++r)
+            for (int c = 0; c < CPL; ++c) acc[v][r][c] = fmaf(a[r], b[c], acc[v][r][c]);
+        };
+        if (kc == PK) {
+#pragma unroll
+          for (int k = 0; k < PK; ++k) step(k);
+        } else {
+          for (int k = 0; k < kc; ++k) step(k);
+        }
+      }
+    }
+    for (int v = 0; v < VPL; ++v) {
+      const int vt = t.lane + NL * v, ty = vt / 16, tx = vt % 16;
+      for (int r = 0; r < RPL; ++r)
+        for (int c = 0; c < CPL; ++c) {
+          const int gi = i0 + ty * RPL + r, gj = tx + 16 * c;
+          if (gi < M && gj < N) C[(long long)gi * ldc + gj] = alpha * acc[v][r][c];
+        }
+    }
+  }
+  t.sync();
+}
+
 // X <- (X + X^T) / 2 on an n x n block, in place.
 template <int NL>
 __host__ __device__ void symmetrize(const Team<NL>& t, float* X, int ld, int n) {
@@ -234,7 +451,7 @@ __host__ __device__ void symmetrize(const Team<NL>& t, float* X, int ld, int n) 
 
 // Out = X^-1 for a k x k SPD block, k <= GJ_LEAF: pivot-free Gauss-Jordan on
 // [X | I] in shared memory, the same steps as riccati._gauss_jordan_inv.
-template <int NL>
+template <int NL, bool OnChip>
 __host__ __device__ ADMM_NOINLINE void gj_inverse(const Team<NL>& t, const float* X, int ldx, int k,
                                     float* Out, int ldo, float* smem) {
   const int w = 2 * k;
@@ -247,15 +464,21 @@ __host__ __device__ ADMM_NOINLINE void gj_inverse(const Team<NL>& t, const float
     aug[e] = j < k ? X[i * ldx + j] : (j - k == i ? 1.0f : 0.0f);
   }
   t.sync();
+  const int ei = t.lane / w, ej = t.lane % w;
   for (int p = 0; p < k; ++p) {
     for (int e = t.lane; e < w + k; e += NL) {
       if (e < w) prow[e] = aug[p * w + e] / aug[p * w + p];
       else fac[e - w] = aug[(e - w) * w + p];
     }
     t.sync();
-    for (int e = t.lane; e < k * w; e += NL) {
-      const int i = e / w, j = e % w;
-      aug[e] = i == p ? prow[j] : aug[e] - fac[i] * prow[j];
+    if constexpr (NL >= 2 * GJ_LEAF * GJ_LEAF) {
+      // One element a lane, at (ei, ej) for every pivot.
+      if (t.lane < k * w) aug[t.lane] = ei == p ? prow[ej] : aug[t.lane] - fac[ei] * prow[ej];
+    } else {
+      for (int e = t.lane; e < k * w; e += NL) {
+        const int i = e / w, j = e % w;
+        aug[e] = i == p ? prow[j] : aug[e] - fac[i] * prow[j];
+      }
     }
     t.sync();
   }
@@ -263,69 +486,154 @@ __host__ __device__ ADMM_NOINLINE void gj_inverse(const Team<NL>& t, const float
   t.sync();
 }
 
-// Out = X^-1 by the symmetrized 2x2 block Schur recursion.  X (symmetric,
-// n x n) is overwritten: each level computes its Schur complement in place
-// of its C block.  `ws` holds stack_floats(n) floats.  The recursion depth
-// is a template parameter, so the compiler sees no runtime recursion and
-// the device stack stays static; n <= GJ_LEAF << LEVELS.
-template <int NL, int LEVELS = MAX_LEVELS>
-__host__ __device__ ADMM_NOINLINE void schur_inverse(const Team<NL>& t, float* X, int ldx, int n,
-                                       float* Out, int ldo, float* ws, float* smem) {
+// X <- X^-1 in place, by the symmetrized 2x2 block Schur recursion on
+// [A B; . C] (m = n/2, r = n - m).  X is symmetric on entry; only its
+// upper block triangle is read, so each level keeps its operands in the
+// one buffer:
+//   A <- Ai = A^-1                       (the recursion, in place)
+//   L <- W^T = (Ai B)^T                  (the dead lower-left block, r x m)
+//   C <- S = sym(C - B^T W), then S^-1   (the recursion, in place)
+//   B <- Otr = -W S^-1                   (B is dead after the C update)
+//   A <- sym(Ai - Otr W^T)
+//   L <- Otr^T                           (W is dead)
+// W is kept transposed, so it fits the r x m block at odd n too (m < r).
+// No product aliases its output with an input, and each output element
+// is the same fmaf chain over k as with W, Ai and Out in buffers of their
+// own (fmaf is exact in the order of its two factors).  The recursion
+// depth is a template parameter, so the compiler sees no runtime recursion
+// and the device stack stays static; n <= GJ_LEAF << LEVELS.
+template <int NL, bool OnChip, int LEVELS = MAX_LEVELS>
+__host__ __device__ ADMM_NOINLINE void schur_inverse(const Team<NL>& t, float* X, int ld, int n,
+                                                     float* smem) {
   if constexpr (LEVELS == 0) {
-    gj_inverse(t, X, ldx, n, Out, ldo, smem);
+    gj_inverse<NL, OnChip>(t, X, ld, n, X, ld, smem);
     return;
   } else {
   if (n <= GJ_LEAF) {
-    gj_inverse(t, X, ldx, n, Out, ldo, smem);
+    gj_inverse<NL, OnChip>(t, X, ld, n, X, ld, smem);
     return;
   }
   const int m = n / 2, r = n - m;
-  float* W = ws;                                   // m x r
-  float* next = ws + (long long)m * r;
   float* Bm = X + m;                               // X[:m, m:]
-  float* C = X + (long long)m * ldx + m;           // X[m:, m:]
-  float* Otr = Out + m;                            // Out[:m, m:]
-  float* Obr = Out + (long long)m * ldo + m;       // Out[m:, m:]
-  schur_inverse<NL, LEVELS - 1>(t, X, ldx, m, Out, ldo, next, smem);    // Ai
-  gemm(t, m, r, m, 1.0f, Out, ldo, false, Bm, ldx, false, 0.0f, W, r, smem);  // W = Ai B
-  gemm(t, r, r, m, -1.0f, Bm, ldx, true, W, r, false, 1.0f, C, ldx, smem);    // C - B^T W
-  symmetrize(t, C, ldx, r);                                              // S
-  schur_inverse<NL, LEVELS - 1>(t, C, ldx, r, Obr, ldo, next, smem);    // S^-1
-  gemm(t, m, r, r, -1.0f, W, r, false, Obr, ldo, false, 0.0f, Otr, ldo, smem);  // -W S^-1
+  float* L = X + (long long)m * ld;                // X[m:, :m]
+  float* C = L + m;                                // X[m:, m:]
+  schur_inverse<NL, OnChip, LEVELS - 1>(t, X, ld, m, smem);                               // Ai
+  gemm_resident(t, r, m, m, 1.0f, Bm, ld, true, X, ld, true, 0.0f, L, ld);        // W^T
+  gemm_resident(t, r, r, m, -1.0f, Bm, ld, true, L, ld, true, 1.0f, C, ld);       // C - B^T W
+  symmetrize(t, C, ld, r);                                                       // S
+  schur_inverse<NL, OnChip, LEVELS - 1>(t, C, ld, r, smem);                               // S^-1
+  gemm_resident(t, m, r, r, -1.0f, L, ld, true, C, ld, false, 0.0f, Bm, ld);      // -W S^-1
   // Ai + (W S^-1) W^T, as Ai - (-W S^-1) W^T: negation is exact.
-  gemm(t, m, m, r, -1.0f, Otr, ldo, false, W, r, true, 1.0f, Out, ldo, smem);
-  symmetrize(t, Out, ldo, m);
+  gemm_resident(t, m, m, r, -1.0f, Bm, ld, false, L, ld, false, 1.0f, X, ld);
+  symmetrize(t, X, ld, m);
   for (int e = t.lane; e < m * r; e += NL) {
     const int i = e / r, j = e % r;
-    Out[(long long)(m + j) * ldo + i] = Otr[(long long)i * ldo + j];
+    L[(long long)j * ld + i] = Bm[(long long)i * ld + j];
   }
   t.sync();
   }
 }
 
-// dst = spd_inverse(K): the recursion on sym(K), then ns_iters Newton-Schulz
-// steps with the unsymmetrized K.  xw, tw: n x n workspaces; ws: the
-// recursion's stack.  dst may be in shared memory (ldd = n + 1).
+// dst = (R + R^T) / 2 (dst may be R), by pairs of TS x TS tiles staged
+// through `smem`, so that every read and write of R and dst runs along
+// rows (both may lie in device memory).
 template <int NL>
-__host__ __device__ ADMM_NOINLINE void spd_inverse(const Team<NL>& t, const float* K, int ldk, int n,
-                                     int ns_iters, float* dst, int ldd, float* xw,
-                                     float* tw, float* ws, float* smem) {
-  for (int e = t.lane; e < n * n; e += NL) {
-    const int i = e / n, j = e % n;
-    xw[e] = 0.5f * (K[(long long)i * ldk + j] + K[(long long)j * ldk + i]);
+__host__ __device__ void symmetrize_to(const Team<NL>& t, const float* R, int ldr, float* dst,
+                                       int ldd, int n, float* smem) {
+  constexpr int TS = 32, LS = TS + 1;
+  static_assert(2 * TS * LS <= SCRATCH_FLOATS, "symmetrize tiles exceed the scratch");
+  float* S1 = smem;            // R[I.., J..]
+  float* S2 = smem + TS * LS;  // R[J.., I..]
+  for (int I = 0; I < n; I += TS)
+    for (int J = I; J < n; J += TS) {
+      const int mi = n - I < TS ? n - I : TS, mj = n - J < TS ? n - J : TS;
+      for (int e = t.lane; e < TS * TS; e += NL) {
+        const int a = e / TS, b = e % TS;
+        if (a < mi && b < mj) S1[a * LS + b] = R[(long long)(I + a) * ldr + J + b];
+        if (a < mj && b < mi) S2[a * LS + b] = R[(long long)(J + a) * ldr + I + b];
+      }
+      t.sync();
+      for (int e = t.lane; e < TS * TS; e += NL) {
+        const int a = e / TS, b = e % TS;
+        if (a < mi && b < mj)
+          dst[(long long)(I + a) * ldd + J + b] = 0.5f * (S1[a * LS + b] + S2[b * LS + a]);
+        if (a < mj && b < mi)
+          dst[(long long)(J + a) * ldd + I + b] = 0.5f * (S2[a * LS + b] + S1[b * LS + a]);
+      }
+      t.sync();
+    }
+}
+
+// dst = spd_inverse(K): X = sym(K), the in-place recursion on X, then
+// ns_iters Newton-Schulz steps X <- sym(X (2I - K X)) with the
+// unsymmetrized K, by column panels J of PANEL columns:
+//   T = 2I[:, J] - K X[:, J]   (the panel buffer T, n x PANEL)
+//   R[:, J] = X T              (R: n x n, ld ldr, not X: X is read whole
+//                               by every panel)
+// and then sym(R) into X (between steps) or dst (after the last).  X has
+// ld n + 1; dst may be X (ld n + 1), or R itself.  With ns_iters = 0, X
+// is copied to dst.  The panel products run as gemm_panel in a block of
+// 512 lanes (the invert kernel) and as the staged gemm with fewer.
+template <int NL, bool OnChip>
+__host__ __device__ ADMM_NOINLINE void spd_inverse(const Team<NL>& t, const float* K, int ldk,
+                                                   int n, int ns_iters, float* X, float* T,
+                                                   float* R, int ldr, float* dst, int ldd,
+                                                   float* smem) {
+  const int ldx = n + 1;
+  // K to X row by row, many 16-byte loads in flight per lane (n = 12h and
+  // ldk = n keep K's rows 16-byte aligned), then X = sym(X) in place.
+  {
+    constexpr int QB = 6;                        // float4 loads in flight per lane
+    const int q4 = n / 4, nq = n * q4;           // float4s of a row, of K
+    for (int e0 = t.lane; e0 < nq; e0 += NL * QB) {
+      float v[QB][4];
+#pragma unroll
+      for (int u = 0; u < QB; ++u) {
+        const int e = e0 + NL * u;
+        if (e < nq) load4(K + (long long)(e / q4) * ldk + 4 * (e % q4), v[u]);
+      }
+#pragma unroll
+      for (int u = 0; u < QB; ++u) {
+        const int e = e0 + NL * u;
+        if (e < nq)
+          for (int c = 0; c < 4; ++c) X[(long long)(e / q4) * ldx + 4 * (e % q4) + c] = v[u][c];
+      }
+    }
   }
   t.sync();
-  schur_inverse(t, xw, n, n, dst, ldd, ws, smem);
-  for (int it = 0; it < ns_iters; ++it) {
-    gemm(t, n, n, n, -1.0f, K, ldk, false, dst, ldd, false, 0.0f, tw, n, smem);  // -K X
-    for (int i = t.lane; i < n; i += NL) tw[(long long)i * n + i] += 2.0f;    // 2I - K X
-    t.sync();
-    gemm(t, n, n, n, 1.0f, dst, ldd, false, tw, n, false, 0.0f, xw, n, smem);
-    for (int e = t.lane; e < n * n; e += NL) {
-      const int i = e / n, j = e % n;
-      dst[(long long)i * ldd + j] = 0.5f * (xw[e] + xw[(long long)j * n + i]);
+  for (int e = t.lane; e < n * n; e += NL) {
+    const int i = e / n, j = e % n;
+    if (i <= j) {
+      const float s = 0.5f * (X[(long long)i * ldx + j] + X[(long long)j * ldx + i]);
+      X[(long long)i * ldx + j] = s;
+      X[(long long)j * ldx + i] = s;
     }
+  }
+  t.sync();
+  schur_inverse<NL, OnChip>(t, X, ldx, n, smem);
+  if (ns_iters == 0 && dst != X) {
+    for (int e = t.lane; e < n * n; e += NL)
+      dst[(long long)(e / n) * ldd + e % n] = X[(long long)(e / n) * ldx + e % n];
     t.sync();
+  }
+  for (int it = 0; it < ns_iters; ++it) {
+    for (int j0 = 0; j0 < n; j0 += PANEL) {
+      const int w = n - j0 < PANEL ? n - j0 : PANEL;
+      // C (n x w) = alpha A B, for A n x n and B n x w.
+      auto product = [&](float alpha, const float* A, int lda, const float* B, int ldb, float* C,
+                         int ldc) {
+        if constexpr (NL >= 512)
+          gemm_panel<NL, OnChip>(t, n, w, n, alpha, A, lda, B, ldb, C, ldc, smem);
+        else
+          gemm<NL, OnChip>(t, n, w, n, alpha, A, lda, false, B, ldb, false, 0.0f, C, ldc, smem);
+      };
+      product(-1.0f, K, ldk, X + j0, ldx, T, PANEL);                        // -K X
+      for (int j = t.lane; j < w; j += NL) T[(long long)(j0 + j) * PANEL + j] += 2.0f;
+      t.sync();
+      product(1.0f, X, ldx, T, PANEL, R + j0, ldr);                         // X T
+    }
+    if (it + 1 < ns_iters) symmetrize_to(t, R, ldr, X, ldx, n, smem);
+    else symmetrize_to(t, R, ldr, dst, ldd, n, smem);
   }
 }
 
@@ -435,7 +743,9 @@ __host__ __device__ void store_iter_result(const Team<NL>& t, const IterArgs& a,
 }
 
 // Kernel 3, one scenario: Kinv (n x n, ld n) to chip (ld n + 1) unless
-// `kinv_smem` is null, then the sweeps.  `smem` holds the vectors.
+// `kinv_smem` is null, then the sweeps.  `smem` holds the vectors.  The
+// kernel passes its shared-memory array itself (not a pointer chosen at
+// run time), so the copy compiles to shared-memory stores.
 template <int NL>
 __host__ __device__ void iterate_one(const Team<NL>& t, const float* Kinv, float* kinv_smem,
                                      const IterArgs& a, int n, int m, float mu,
@@ -454,19 +764,17 @@ __host__ __device__ void iterate_one(const Team<NL>& t, const float* Kinv, float
   store_iter_result(t, a, n, m, v);
 }
 
-// Kernel 4, one scenario: invert K into `kinv` (ld n + 1, on chip or in
-// the workspace), then the sweeps.  ws: 2 n^2 + stack_floats(n) floats.
-template <int NL>
-__host__ __device__ void fused_one(const Team<NL>& t, const float* K, float* kinv,
+// Kernel 4, one scenario: invert K in place into l.X (Kinv, ld n + 1),
+// then the sweeps.
+template <int NL, bool OnChip>
+__host__ __device__ void fused_one(const Team<NL>& t, const float* K, const Layout& l,
                                    const IterArgs& a, int n, int m, float mu, int iterations,
-                                   float sigma, float alpha, int ns_iters, float* ws,
-                                   float* scratch, float* vecs) {
+                                   float sigma, float alpha, int ns_iters) {
   Vecs v;
-  carve(vecs, n, m, v);
-  const long long nn = (long long)n * n;
-  spd_inverse(t, K, n, n, ns_iters, kinv, n + 1, ws, ws + nn, ws + 2 * nn, scratch);
+  carve(l.vecs, n, m, v);
+  spd_inverse<NL, OnChip>(t, K, n, n, ns_iters, l.X, l.T, l.R, n, l.X, n + 1, l.tiles);
   load_iter_vectors(t, a, n, m, v);
-  admm_iterations(t, kinv, n + 1, n, mu, v, iterations, sigma, alpha);
+  admm_iterations(t, l.X, n + 1, n, mu, v, iterations, sigma, alpha);
   store_iter_result(t, a, n, m, v);
 }
 
@@ -478,17 +786,16 @@ struct FullArgs {
 
 // Kernel 5, one scenario: Ruiz scaling, cone-row scaling, per-row rho,
 // K = Hs + A^T rho A + sigma I, inversion, the warm-start map, the sweeps
-// and the unscaling.  ws: 3 n^2 + stack_floats(n) floats (K first).
-template <int NL>
-__host__ __device__ void full_one(const Team<NL>& t, const FullArgs& a, float* kinv, int n,
+// and the unscaling.  K is assembled in l.Kw and inverted into l.X.
+template <int NL, bool OnChip>
+__host__ __device__ void full_one(const Team<NL>& t, const FullArgs& a, const Layout& l, int n,
                                   int m, float mu, int iterations, float sigma, float alpha,
-                                  int ns_iters, int ruiz_iters, float rho_ineq, float rho_eq,
-                                  float* ws, float* scratch, float* vecs) {
+                                  int ns_iters, int ruiz_iters, float rho_ineq, float rho_eq) {
   Vecs v;
-  float* extra = carve(vecs, n, m, v);
+  float* extra = carve(l.vecs, n, m, v);
   float* delta = extra;          // n
   const long long nn = (long long)n * n;
-  float* Kw = ws;
+  float* Kw = l.Kw;
   const int nb = n / 3;
 
   // Ruiz equilibration: Hs = D H D, d = prod of the deltas.
@@ -540,7 +847,7 @@ __host__ __device__ void full_one(const Team<NL>& t, const FullArgs& a, float* k
   }
   t.sync();
 
-  spd_inverse(t, Kw, n, n, ns_iters, kinv, n + 1, ws + nn, ws + 2 * nn, ws + 3 * nn, scratch);
+  spd_inverse<NL, OnChip>(t, Kw, n, n, ns_iters, l.X, l.T, l.R, n, l.X, n + 1, l.tiles);
 
   // Warm start in scaled coordinates: x0 = U0 / d,
   // z0 = clip(es (P0 U0), lo, hi), y0 = lam0 / es on gated rows, else 0
@@ -555,9 +862,14 @@ __host__ __device__ void full_one(const Team<NL>& t, const FullArgs& a, float* k
     }
   }
   t.sync();
-  admm_iterations(t, kinv, n + 1, n, mu, v, iterations, sigma, alpha);
+  admm_iterations(t, l.X, n + 1, n, mu, v, iterations, sigma, alpha);
   for (int i = t.lane; i < n; i += NL) a.U[i] = v.x[i] * v.d[i];
   for (int i = t.lane; i < m; i += NL) a.lam[i] = v.es[i] * v.y[i];
 }
 
 }  // namespace admm
+
+// Exported by every library built from this header (the CUDA kernels,
+// their host builds), so that the wrapper refuses a larger n with a
+// message.
+extern "C" int admm_max_n() { return admm::MAX_N; }

@@ -25,6 +25,8 @@ launchers instead (the CPU tests pass the host build of ``admm.cuh``).
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from pympc_quadruped_tpu_torch import _build
@@ -51,15 +53,24 @@ def _check(name, t, shape, device):
         raise ValueError(f"{name}: kernel operands must be contiguous")
 
 
-# Largest n the kernels' Schur recursion takes (csrc/admm.cuh, MAX_N).
-MAX_N = 1024
+def _check_aligned(name, t):
+    """The inverting kernels read K's rows 16 bytes at a time."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: the kernels need a 16-byte aligned start")
 
 
-def _dims(B, n, m):
+def _check_n(lib, n):
+    """Refuse an n beyond the kernels' Schur recursion (admm::MAX_N, which
+    every library of csrc/admm.cuh exports)."""
+    max_n = lib.admm_max_n()
+    if n > max_n:
+        raise ValueError(f"n={n}: the kernels invert at most {max_n} x {max_n} matrices")
+
+
+def _dims(lib, n, m):
     if n % 12 or 3 * m != 5 * n:
         raise ValueError(f"n={n}, m={m}: expected n = 12h variables and m = 20h cone rows")
-    if n > MAX_N:
-        raise ValueError(f"n={n}: the kernels invert at most {MAX_N} x {MAX_N} matrices")
+    _check_n(lib, n)
 
 
 def _target(t: torch.Tensor, lib):
@@ -88,6 +99,16 @@ def _run(t: torch.Tensor, name: str, fn, *args) -> None:
         LAUNCHES[name] += 1
 
 
+def invert_occupancy(lib, n: int) -> dict:
+    """What the card keeps resident of the invert kernel at ``n``: blocks
+    (one scenario each) per SM and dynamic shared memory bytes per block."""
+    out = (ctypes.c_int * 2)()
+    rc = lib.admm_invert_occupancy(n, ctypes.addressof(out))
+    if rc != 0:
+        raise RuntimeError(f"admm_invert_kernel occupancy query failed: CUDA error {rc}")
+    return {"blocks_per_sm": out[0], "smem_per_block": out[1]}
+
+
 def _workspace(lib, kernel, B, n, m, device) -> torch.Tensor:
     return torch.empty(B * lib.admm_workspace_floats(kernel, n, m),
                        dtype=torch.float32, device=device)
@@ -101,9 +122,9 @@ def invert_spd(K: torch.Tensor, ns_iters: int = 1, lib=None) -> torch.Tensor:
     target = _target(K, lib)
     if target is None:
         return admm_fast.spd_inverse(K, ns_iters)
-    if n > MAX_N:
-        raise ValueError(f"n={n}: the kernels invert at most {MAX_N} x {MAX_N} matrices")
     lib, stream = target
+    _check_n(lib, n)
+    _check_aligned("K", K)
     Kinv = torch.empty_like(K)
     ws = _workspace(lib, _INVERT, B, n, 0, K.device)
     _run(K, "invert_spd", lib.admm_invert_launch,
@@ -111,13 +132,13 @@ def invert_spd(K: torch.Tensor, ns_iters: int = 1, lib=None) -> torch.Tensor:
     return Kinv
 
 
-def _iter_operands(ops, mat_name, P0, init):
+def _iter_operands(lib, ops, mat_name, P0, init):
     """Checked operands (q .. y0, then the outputs x (B,n), y (B,m)) of the
     iterate and fused kernels.  The caller holds them until the launch has
     been enqueued: a pointer alone does not keep a tensor alive."""
     B, n = ops.q.shape
     m = ops.es.shape[-1]
-    _dims(B, n, m)
+    _dims(lib, n, m)
     dev = ops.q.device
     _check(mat_name, ops[0], (B, n, n), dev)
     for name in ("q", "d"):
@@ -152,7 +173,7 @@ def iterate(ops: AdmmOperands, P0: torch.Tensor, cfg: admm_fast.AdmmFastConfig,
     if target is None:
         return admm_fast.iterate_jnp(ops, P0, cfg, init)
     lib, stream = target
-    args, (B, n, m) = _iter_operands(ops, "Kinv", P0, init)
+    args, (B, n, m) = _iter_operands(lib, ops, "Kinv", P0, init)
     _run(ops.q, "iterate", lib.admm_iterate_launch,
          *(t.data_ptr() for t in (ops.Kinv, *args)),
          B, n, m, int(cfg.iterations), float(cfg.sigma), float(cfg.alpha), stream)
@@ -186,7 +207,8 @@ def iterate_fused(ops: AdmmKktOperands, P0: torch.Tensor, cfg: admm_fast.AdmmFas
         Kinv = admm_fast.spd_inverse(ops.K, cfg.newton_schulz_iters)
         return admm_fast.iterate_jnp(AdmmOperands(Kinv, *ops[1:]), P0, cfg, init)
     lib, stream = target
-    args, (B, n, m) = _iter_operands(ops, "K", P0, init)
+    args, (B, n, m) = _iter_operands(lib, ops, "K", P0, init)
+    _check_aligned("K", ops.K)
     ws = _workspace(lib, _FUSED, B, n, m, ops.q.device)
     _run(ops.q, "iterate_fused", lib.admm_fused_launch,
          *(t.data_ptr() for t in (ops.K, *args, ws)),
@@ -208,7 +230,7 @@ def solve_full(H, g, srow, l, u, P0: torch.Tensor, cfg: admm_fast.AdmmFastConfig
     lib, stream = target
     B, n = g.shape
     m = srow.shape[-1]
-    _dims(B, n, m)
+    _dims(lib, n, m)
     dev = g.device
     _check("H", H, (B, n, n), dev)
     _check("g", g, (B, n), dev)

@@ -29,6 +29,7 @@ between two f32 recursions; it is judged by its f64 residual
 max|Kinv K - I| (within 2x of JAX's), as the spd_inverse cases are.
 """
 import functools
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -264,11 +265,78 @@ def test_kernel_code_on_host_matches_jax(backend, h, warm, host_kernels):
 
 def test_invert_kernel_code_on_host_h16(host_kernels):
     """The invert kernel's arithmetic at the main path's n = 192: its f64
-    residual within 2x of the plain version's on the same K."""
+    residual within 2x of the plain version's on the same K, with the
+    kernel's buffers on chip (no device-memory workspace)."""
+    assert host_kernels.admm_workspace_floats(admm_cuda._INVERT, 192, 0) == 0
     K = torch.tensor(_spd(192, 7))
     r_kernel = _inverse_residual(admm_cuda.invert_spd(K, lib=host_kernels), K)
     r_plain = _inverse_residual(admm_fast.spd_inverse(K), K)
     assert np.isfinite(r_kernel) and r_kernel <= 2.0 * r_plain, (r_kernel, r_plain)
+
+
+@pytest.mark.parametrize("n", [84, 204])
+def test_invert_kernel_code_on_host_placements(n, host_kernels):
+    """n = 84 splits unevenly (84 -> 42 -> 21 -> 10 | 11: W kept transposed
+    in a lower-left block that is not square) with the buffer on chip; at
+    n = 204 (h = 17) the buffer does not fit and lies in the workspace.
+    Same bar as at n = 192."""
+    on_chip = n <= 192
+    assert (host_kernels.admm_workspace_floats(admm_cuda._INVERT, n, 0)
+            == (0 if on_chip else n * (n + 1) + n * 64))
+    K = torch.tensor(_spd(n, 7))
+    r_kernel = _inverse_residual(admm_cuda.invert_spd(K, lib=host_kernels), K)
+    r_plain = _inverse_residual(admm_fast.spd_inverse(K), K)
+    assert np.isfinite(r_kernel) and r_kernel <= 2.0 * r_plain, (r_kernel, r_plain)
+
+
+def test_fused_kernel_workspace_holds_only_newton_schulz_product(host_kernels):
+    """At h = 16 the fused kernel's Kinv (the in-place X) and panel live in
+    shared memory; its workspace is the n x n Newton-Schulz product R, which
+    is read whole while X is still needed and does not fit beside it.  The
+    full kernel adds its assembled K."""
+    n, m = 192, 320
+    assert host_kernels.admm_workspace_floats(admm_cuda._FUSED, n, m) == n * n
+    assert host_kernels.admm_workspace_floats(admm_cuda._FULL, n, m) == 2 * n * n
+
+
+@pytest.mark.parametrize("h", [2, 17])
+def test_fused_kernel_code_matches_split_bitwise(h, host_kernels):
+    """The fused kernel inverts with the invert kernel's code and sweeps
+    with the iterate kernel's, so on the host its (x, y) equal the split
+    pipeline's bit for bit: at h = 2 with the buffers on chip, at h = 17
+    with X and the panel in the workspace."""
+    import chip_smoke
+
+    p = chip_smoke.condensed_problem(2, 3, torch.device("cpu"), h=h)
+    cfg = admm_fast.AdmmFastConfig.inloop()
+    ops = admm_fast.setup(p.H, p.g, p.table, p.robot.fz_max, p.mpc, cfg, invert=False)
+    P0 = admm_fast.cone_pattern(p.mpc.friction_coef, h)
+    init = admm_fast.warm_init(ops, P0, p.warm)
+    fused = admm_cuda.iterate_fused(ops, P0, cfg, init, lib=host_kernels)
+    split = admm_cuda.invert_iterate(ops, P0, cfg, init, lib=host_kernels)
+    assert bool(torch.isfinite(fused[0]).all())
+    for a, b in zip(fused, split):
+        assert torch.equal(a, b)
+
+
+@pytest.fixture(scope="module")
+def lane_kernels(tmp_path_factory):
+    """The invert kernel's code with the card's 256 lanes as host threads
+    (tests/admm_lanes.cpp)."""
+    return _build.build_host(str(Path(__file__).parent / "admm_lanes.cpp"),
+                             tmp_path_factory.mktemp("admm_lanes"))
+
+
+@pytest.mark.parametrize("ns_iters", [1, 2])
+@pytest.mark.parametrize("n", [84, 192])
+def test_invert_kernel_code_lanes_match_one_lane(n, ns_iters, lane_kernels, host_kernels):
+    """The card's lane split (256 host threads, a barrier for
+    __syncthreads) gives bitwise the one-lane host build's Kinv, at the
+    uneven split n = 84 and at n = 192, with one and two Newton-Schulz
+    steps (the second reloads X from the first's product)."""
+    K = torch.tensor(_spd(n, 7)[:1])
+    Kinv = admm_cuda.invert_spd(K, ns_iters, lib=lane_kernels)
+    assert torch.equal(Kinv, admm_cuda.invert_spd(K, ns_iters, lib=host_kernels))
 
 
 def test_wrapper_rejects_bad_operands(host_kernels):
@@ -280,6 +348,9 @@ def test_wrapper_rejects_bad_operands(host_kernels):
         admm_cuda.invert_spd(ops.K.double(), lib=host_kernels)
     with pytest.raises(ValueError, match="contiguous"):
         admm_cuda.invert_spd(ops.K.transpose(-1, -2), lib=host_kernels)
+    misaligned = torch.empty(ops.K.numel() + 1)[1:].view_as(ops.K)
+    with pytest.raises(ValueError, match="aligned"):
+        admm_cuda.invert_spd(misaligned, lib=host_kernels)
     with pytest.raises(ValueError, match="shape"):
         admm_cuda.iterate_fused(ops, P0[:, :12], _cfg(COLD), lib=host_kernels)
     with pytest.raises(TypeError, match="AdmmOperands"):

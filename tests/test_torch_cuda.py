@@ -88,14 +88,16 @@ def test_cuda_condensed_closed_loop_goes_through_the_kernels(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B", [256, 130])
-def test_cuda_condensed_kernels_match_plain(cuda_device, B):
-    """Kernels 2-5 against their plain versions at h=16 with the bars of
+@pytest.mark.parametrize("B,h", [(256, 16), (130, 16), (33, 17)])
+def test_cuda_condensed_kernels_match_plain(cuda_device, B, h):
+    """Kernels 2-5 against their plain versions with the bars of
     chip_smoke.py phase 5: the invert kernel's f64 residual within 2x of
     spd_inverse's; each backend's solution against jnp with the JAX bench's
     batch kernel gate (f64 cost excess, cone rows, predicted CoM
-    trajectory), cold and warm-started."""
-    p = condensed_problem(B, 11, cuda_device)
+    trajectory), cold and warm-started.  At h=16 the inverting kernels
+    keep their buffers in shared memory; at h=17 they do not fit and lie
+    in the device-memory workspace."""
+    p = condensed_problem(B, 11, cuda_device, h=h)
     args = (p.H, p.g, p.table, p.robot.fz_max, p.mpc)
     K = admm_fast.setup(*args, admm_fast.AdmmFastConfig(), invert=False).K
     r_k = float(inverse_residual(admm_cuda.invert_spd(K), K).max())
