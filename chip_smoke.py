@@ -7,8 +7,10 @@ result):
 
 1. device and build: a CUDA card, its name and power limit, every kernel
    built from ``pympc_quadruped_tpu_torch/csrc`` (one nvcc per source, in
-   parallel) with its ptxas report, and the Riccati and invert kernels'
-   resident scenarios per SM and shared memory per block;
+   parallel) with its ptxas report, the Riccati and invert kernels'
+   resident scenarios per SM and shared memory per block, and the iterate
+   kernel's launch at B=4096 (threads, persistent blocks, shared memory)
+   with its entry's ptxas line, which must show no spills;
 2. Riccati kernel vs plain: the Riccati-ADMM kernel against its plain
    PyTorch version on the same random h=16 problems, at B=4096 and at a
    ragged B=130: cold, warm-started, and with per-scenario rho;
@@ -630,6 +632,15 @@ def main() -> int:
           f"resident per SM, {occ['smem_per_block']} B of dynamic shared memory per block, "
           f"{libs['admm'].lib.admm_workspace_floats(0, 12 * HORIZON, 0)} workspace floats per "
           f"scenario; ptxas: {entry_report(libs['admm'].log, 'admm_invert_kernel')}", flush=True)
+    n = 12 * HORIZON
+    cfg = admm_cuda.iterate_config(libs["admm_iterate"].lib, B_MAIN, n, 5 * n // 3)
+    ptxas = entry_report(libs["admm_iterate"].log, "admm_iterate_kernel")
+    print(f"phase 1: admm_iterate_kernel at h={HORIZON}, B={B_MAIN}: {cfg['threads']} threads a "
+          f"block, {cfg['grid']} persistent blocks ({cfg['blocks_per_sm']} resident per SM), "
+          f"{cfg['smem_per_block']} B of dynamic shared memory per block; ptxas: {ptxas}",
+          flush=True)
+    check(" 0 bytes spill stores, 0 bytes spill loads" in ptxas.split(";")[0],
+          "admm_iterate_kernel: Kinv does not stay in registers (ptxas reports spills)")
 
     max_err = phase_kernel_vs_plain(dev)
     ric_launches, loop_state = phase_closed_loop(dev, "riccati", 3)
@@ -656,8 +667,9 @@ def main() -> int:
         launches = (cond_launches[name] if on_loop else
                     backend_launches["pallas_fused" if name == "iterate_fused"
                                      else "pallas_full"][name])
+        source = "admm_iterate.cu" if name == "iterate" else "admm.cu"
         kernels.append({
-            "name": name, "route": "cuda", "source": "pympc_quadruped_tpu_torch/csrc/admm.cu",
+            "name": name, "route": "cuda", "source": f"pympc_quadruped_tpu_torch/csrc/{source}",
             "replaces": f"pympc_quadruped_tpu/ops/qp/admm_pallas.py:{replaces[name]}",
             "launches": launches,
             "launches_in": ("admm_fast closed loop, 150 solves" if on_loop else

@@ -1,12 +1,12 @@
 // The condensed-ADMM kernels on Hopper (sm_90a): one thread block per
-// scenario, of 512 threads (invert) or 256 (the others).  The arithmetic
-// lives in admm.cuh; this file holds the four kernels and their C
-// launchers, bound from Python with ctypes
-// (pympc_quadruped_tpu_torch/ops/qp/admm_cuda.py).
+// scenario, of 512 threads (invert) or 256 (fused, full).  The arithmetic
+// lives in admm.cuh; this file holds three kernels and their C launchers,
+// bound from Python with ctypes (pympc_quadruped_tpu_torch/ops/qp/admm_cuda.py).
+// The iterate kernel has a translation unit of its own, admm_iterate.cu.
 //
 // They replace the TPU kernels of pympc_quadruped_tpu/ops/qp/admm_pallas.py:
 //   admm_invert_kernel   <- _invert_kernel (:242, wrapper invert_spd :266)
-//   admm_iterate_kernel  <- _kernel (:38, wrapper _iterate :81)
+//   admm_iterate_kernel  <- _kernel (:38, wrapper _iterate :81), admm_iterate.cu
 //   admm_fused_kernel    <- _fused_kernel (:374, wrapper _iterate_fused :647)
 //   admm_full_kernel     <- _full_kernel (:417, wrapper _solve_full :533)
 // The Pallas kernels put a tile of scenarios on the grid and padded n to a
@@ -36,13 +36,13 @@
 //   products, whose rounding NaN-poisons the recursion (admm_pallas.py:114).
 //   From h = 17 the buffer does not fit, and the same code runs on it in a
 //   device-memory workspace.
-// - iterate: per sweep one n x n matrix-vector product (2 n^2 flop) and
-//   O(m) cone work; 40 sweeps are ~12 GFLOP, ~0.18 ms, against one read of
-//   Kinv (604 MB), ~0.18 ms.  Kinv goes to dynamic shared memory once
-//   (n (n+1) floats, 148,224 B at n = 192, rows padded by one float so a
-//   warp's row reads fall in 32 different banks) and every sweep reads it
-//   there.  From n = 240 (h = 20) it does not fit in the 232,448 B a block
-//   may use, and the kernel reads Kinv from device memory every sweep.
+// - iterate: 40 sweeps of one n x n matrix-vector product (2 n^2 flop)
+//   and O(m) cone work, 13.3 GFLOP, ~0.198 ms at 67 TFLOP/s, against 653
+//   MB read once, ~0.195 ms at 3.35 TB/s: balanced between the two.  The
+//   kernel keeps each scenario's Kinv in registers, split over the lanes
+//   of 12 warps, and runs persistent blocks, one per SM, that bring the
+//   next scenario's Kinv to shared memory by bulk copy (TMA) while the
+//   current one sweeps (admm_iterate.cu).
 // - fused and full: invert + iterate in one launch, with the invert
 //   kernel's in-place inverse: X becomes Kinv in shared memory and never
 //   goes back to device memory (from h = 17 it stays in the workspace).
@@ -77,28 +77,12 @@ admm_invert_kernel(const float* K, float* Kinv, float* ws, int n, int ns_iters,
 }
 
 __global__ void __launch_bounds__(kThreads)
-admm_iterate_kernel(const float* Kinv, admm::IterArgs a, const float* P0, int n, int m,
-                    int iterations, float sigma, float alpha, int kinv_on_chip) {
-  extern __shared__ __align__(16) float smem[];
-  const Team t{(int)threadIdx.x};
-  const long long b = blockIdx.x;
-  admm::IterArgs s{a.q + b * n, a.d + b * n, a.es + b * m, a.rho + b * m, a.lo + b * m,
-                   a.hi + b * m, a.x0 + b * n, a.z0 + b * m, a.y0 + b * m, a.x + b * n,
-                   a.y + b * m};
-  float* kinv = kinv_on_chip ? smem : nullptr;
-  float* vecs = kinv_on_chip ? smem + admm::x_floats(n) : smem;
-  admm::iterate_one(t, Kinv + b * n * n, kinv, s, n, m, P0[2], iterations, sigma, alpha, vecs);
-}
-
-__global__ void __launch_bounds__(kThreads)
 admm_fused_kernel(const float* K, admm::IterArgs a, const float* P0, float* ws, int n, int m,
                   int iterations, float sigma, float alpha, int ns_iters, long long ws_floats) {
   extern __shared__ __align__(16) float smem[];
   const Team t{(int)threadIdx.x};
   const long long b = blockIdx.x, nn = (long long)n * n;
-  admm::IterArgs s{a.q + b * n, a.d + b * n, a.es + b * m, a.rho + b * m, a.lo + b * m,
-                   a.hi + b * m, a.x0 + b * n, a.z0 + b * m, a.y0 + b * m, a.x + b * n,
-                   a.y + b * m};
+  const admm::IterArgs s = admm::scenario_args(a, b, n, m);
   float* w = ws + b * ws_floats;
   admm::with_layout(admm::FUSED, n, m, smem, w, [&](const admm::Layout& l, auto p) {
     admm::fused_one<kThreads, decltype(p)::on_chip>(t, K + b * nn, l, s, n, m, P0[2], iterations,
@@ -157,22 +141,6 @@ extern "C" int admm_invert_occupancy(int n, int* out) {
   out[0] = blocks;
   out[1] = (int)smem;
   return static_cast<int>(err);
-}
-
-extern "C" int admm_iterate_launch(const float* Kinv, const float* q, const float* d,
-                                   const float* es, const float* rho, const float* l,
-                                   const float* u, const float* P0, const float* x0,
-                                   const float* z0, const float* y0, float* x, float* y,
-                                   int B, int n, int m, int iterations, float sigma,
-                                   float alpha, void* stream) {
-  if (B == 0) return 0;
-  const long long smem = admm::smem_bytes(admm::ITERATE, n, m);
-  cudaError_t err = launch_prep(admm_iterate_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  admm::IterArgs a{q, d, es, rho, l, u, x0, z0, y0, x, y};
-  admm_iterate_kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      Kinv, a, P0, n, m, iterations, sigma, alpha, admm::on_chip(admm::ITERATE, n, m));
-  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int admm_fused_launch(const float* K, const float* q, const float* d,

@@ -1,14 +1,18 @@
-// Per-scenario arithmetic of the condensed ADMM kernels (admm.cu).
+// Per-scenario arithmetic of the condensed ADMM kernels (admm.cu,
+// admm_iterate.cu).
 //
-// One thread block solves one scenario: its NL threads ("lanes") share the
-// scenario's matrices and split every loop as `for (e = lane; e < N; e +=
-// NL)`, with Team::sync() as the barrier between dependent steps.  The code
-// is plain C++ marked __host__ __device__: the CUDA kernels instantiate it
-// with NL = 512 (invert) or 256 (the others) and __syncthreads();
-// admm_host.cpp instantiates it with NL = 1 and a no-op barrier, so a host
-// compiler runs the same arithmetic on the CPU.  Each output element of a
-// matrix product is one lane's fmaf chain over k in increasing order, so
-// the result does not depend on NL or on how a product is tiled.
+// One thread block solves one scenario at a time: its NL threads ("lanes")
+// share the scenario's matrices and split every loop as `for (e = lane; e <
+// N; e += NL)`, with Team::sync() as the barrier between dependent steps.
+// The code is plain C++ marked __host__ __device__: the CUDA kernels
+// instantiate it with NL = 512 (invert), 384 (iterate, n <= REG_N) or 256
+// (the others) and __syncthreads(); admm_host.cpp instantiates it with NL =
+// 1 and a no-op barrier, so a host compiler runs the same arithmetic on the
+// CPU.  Each output element of a matrix product is one lane's fmaf chain
+// over k in increasing order, so the result does not depend on NL or on how
+// a product is tiled.  The sweeps' product xt = Kinv rhs has one summation
+// order of its own (row_times), which the iterate kernel's warps compute
+// with Kinv split over their lanes' registers.
 //
 // Math (JAX package, pympc_quadruped_tpu/ops/qp/admm_pallas.py, and the
 // port's plain versions in pympc_quadruped_tpu_torch/ops/qp/admm_fast.py):
@@ -36,8 +40,11 @@
 // registers a thread), while calls keep it small with a static stack.
 #ifdef __CUDACC__
 #define ADMM_NOINLINE __noinline__
+#define ADMM_INLINE __forceinline__
 #else
 #define ADMM_NOINLINE
+#define ADMM_INLINE inline
+#include <sched.h>
 #endif
 
 namespace admm {
@@ -61,6 +68,28 @@ constexpr int RPB = 5;                          // cone rows per 3-variable bloc
 constexpr long long SMEM_LIMIT = 232448;
 
 enum Kernel { INVERT = 0, ITERATE = 1, FUSED = 2, FULL = 3 };
+
+// The iterate kernel's register path: RES_THREADS lanes (12 warps) hold
+// Kinv in registers, warp w rows [RES_ROWS w, RES_ROWS (w + 1)) and lane j
+// of it the columns k = j + 32 c (c < RES_COLS); it serves n <= REG_N.
+constexpr int RES_THREADS = 384;
+constexpr int RES_ROWS = 16;
+constexpr int RES_COLS = 6;
+constexpr int REG_N = RES_THREADS / 32 * RES_ROWS;   // 192, h = 16
+static_assert(REG_N == 32 * RES_COLS, "the register tile must be square");
+
+__host__ __device__ inline bool in_registers(int n) { return n <= REG_N; }
+
+// The register path's shared memory: the stage that the next scenario's
+// Kinv (ld n) and nine vectors (q, d, x0; es, rho, lo, hi, z0, y0) arrive
+// in, then the sweeps' vectors, then the copies' barrier (8 bytes, in 4
+// floats so that every part stays 16-byte aligned).
+__host__ __device__ inline long long stage_floats(int n, int m) {
+  return (long long)n * n + 3LL * n + 6LL * m;
+}
+__host__ __device__ inline long long resident_floats(int n, int m) {
+  return stage_floats(n, m) + 5LL * n + 6LL * m + 4;
+}
 
 template <int NL>
 struct Team {
@@ -91,11 +120,13 @@ __host__ __device__ inline long long panel_floats(int n) { return (long long)n *
 
 // Shared-memory floats of a kernel's block with its buffers on chip: the
 // product tiles, X (Kinv of the iterate, fused and full kernels), the
-// panel, and the sweeps' vectors.
+// panel, and the sweeps' vectors; the iterate kernel's register path has
+// its own layout.
 __host__ __device__ inline long long smem_floats(int kernel, int n, int m) {
   const long long inv = SCRATCH_FLOATS + x_floats(n) + panel_floats(n);
   switch (kernel) {
-    case ITERATE: return x_floats(n) + 5LL * n + 6LL * m;
+    case ITERATE:
+      return in_registers(n) ? resident_floats(n, m) : x_floats(n) + 5LL * n + 6LL * m;
     case FUSED:   return inv + 5LL * n + 6LL * m;
     case FULL:    return inv + 6LL * n + 6LL * m;
     default:      return inv;
@@ -106,7 +137,8 @@ __host__ __device__ inline long long smem_floats(int kernel, int n, int m) {
 // they do for every kernel, and the inverting kernels run one block per
 // SM.  From h = 17 X and the panel of the invert, fused and full kernels
 // move to the device-memory workspace (the same code, other pointers);
-// from h = 20 the iterate kernel reads Kinv from device memory.
+// the iterate kernel keeps Kinv in shared memory (ld n + 1) at h = 17-19
+// and reads it from device memory from h = 20.
 __host__ __device__ inline bool on_chip(int kernel, int n, int m) {
   return smem_floats(kernel, n, m) * 4 <= SMEM_LIMIT;
 }
@@ -655,7 +687,107 @@ struct Vecs {
   float *es, *rho, *lo, *hi, *z, *y;    // m
 };
 
-// `iterations` over-relaxed ADMM sweeps, in place on v.x, v.z, v.y:
+// The sweep's first step for 3-variable block b (its 5 cone rows), from
+// the block's values x, q, d (3) and es, rho, z, y (5) in registers:
+//   rhs = sigma x - q + d (P0^T (es (rho z - y)))
+__host__ __device__ inline void rhs3(const float* x, const float* q, const float* d,
+                                     const float* es, const float* rho, const float* z,
+                                     const float* y, float mu, float sigma, float* rhs) {
+  float w[RPB];
+  for (int r = 0; r < RPB; ++r) w[r] = es[r] * (rho[r] * z[r] - y[r]);
+  const float pv[3] = {w[0] - w[1], w[2] - w[3],
+                       (((mu * w[0] + mu * w[1]) + mu * w[2]) + mu * w[3]) + w[4]};
+  for (int c = 0; c < 3; ++c) rhs[c] = (sigma * x[c] - q[c]) + d[c] * pv[c];
+}
+
+// Block b's values, loaded before anything is stored: the stores could
+// alias them as far as the compiler knows, and would serialize the loads.
+struct BlockVals {
+  float x[3], q[3], d[3], es[RPB], rho[RPB], lo[RPB], hi[RPB], z[RPB], y[RPB];
+};
+
+__host__ __device__ inline BlockVals load_block(const Vecs& v, int b) {
+  BlockVals o;
+  for (int c = 0; c < 3; ++c) {
+    const int j = 3 * b + c;
+    o.x[c] = v.x[j]; o.q[c] = v.q[j]; o.d[c] = v.d[j];
+  }
+  for (int r = 0; r < RPB; ++r) {
+    const int row = RPB * b + r;
+    o.es[r] = v.es[row]; o.rho[r] = v.rho[row]; o.lo[r] = v.lo[row]; o.hi[r] = v.hi[row];
+    o.z[r] = v.z[row]; o.y[r] = v.y[row];
+  }
+  return o;
+}
+
+__host__ __device__ inline void block_rhs(const Vecs& v, int b, float mu, float sigma) {
+  const BlockVals o = load_block(v, b);
+  rhs3(o.x, o.q, o.d, o.es, o.rho, o.z, o.y, mu, sigma, v.rhs + 3 * b);
+}
+
+// The sweep's last step for block b, from xt:
+//   zt = es (P0 (d xt)),   x = alpha xt + (1 - alpha) x,
+//   zbar = alpha zt + (1 - alpha) z,   z = clip(zbar + y / rho, lo, hi),
+//   y = y + rho (zbar - z)
+// and with `next` the next sweep's rhs from the new x, z, y.
+__host__ __device__ inline void block_update(const Vecs& v, int b, float mu, float alpha,
+                                             float sigma, bool next) {
+  BlockVals o = load_block(v, b);
+  float xt[3], s[3];
+  for (int c = 0; c < 3; ++c) xt[c] = v.xt[3 * b + c];
+  for (int c = 0; c < 3; ++c) s[c] = o.d[c] * xt[c];
+  // The quotients y / rho first, each behind a branch.  Over rho > 0 a
+  // zero y (every gated swing row, and most inactive ones: ~99% of the rows
+  // in a sweep) has quotient y itself, bit for bit, and a warp whose lanes
+  // all hold one skips the exact division, whose fast path, reconvergence
+  // and slow-path call cost more than the rest of the step.
+  float yr[RPB];
+  for (int r = 0; r < RPB; ++r) {
+    yr[r] = o.y[r];
+    if (!(o.y[r] == 0.0f && o.rho[r] > 0.0f)) yr[r] = o.y[r] / o.rho[r];
+  }
+  for (int r = 0; r < RPB; ++r) {
+    const float zt = o.es[r] * pyramid_row(r, mu, s);
+    const float zbar = alpha * zt + (1.0f - alpha) * o.z[r];
+    const float znew = clip(zbar + yr[r], o.lo[r], o.hi[r]);
+    o.y[r] = o.y[r] + o.rho[r] * (zbar - znew);
+    o.z[r] = znew;
+  }
+  for (int c = 0; c < 3; ++c) o.x[c] = alpha * xt[c] + (1.0f - alpha) * o.x[c];
+  for (int r = 0; r < RPB; ++r) {
+    v.y[RPB * b + r] = o.y[r];
+    v.z[RPB * b + r] = o.z[r];
+  }
+  for (int c = 0; c < 3; ++c) v.x[3 * b + c] = o.x[c];
+  if (next) rhs3(o.x, o.q, o.d, o.es, o.rho, o.z, o.y, mu, sigma, v.rhs + 3 * b);
+}
+
+// The one summation order of xt[i] = row . rhs in every sweep: 32 partial
+// fmaf chains p_j over k = j, j + 32, ... < n in increasing k, then the
+// pairwise tree p[j] += p[j + s] for s = 16, 8, 4, 2, 1.  admm_iterations
+// computes it a row a lane; the iterate kernel's register path computes
+// p_j on lane j of a warp and the tree with shuffles (tile_chains,
+// tree_rows), so the bits do not depend on the lane count or on the rows a
+// warp holds.
+__host__ __device__ inline float row_times(const float* row, const float* rhs, int n) {
+  float p[32];  // unrolled loops: p stays in registers on the card
+#pragma unroll
+  for (int j = 0; j < 32; ++j) p[j] = 0.0f;
+  for (int k0 = 0; k0 < n; k0 += 32) {
+#pragma unroll
+    for (int j = 0; j < 32; ++j)
+      if (k0 + j < n) p[j] = fmaf(row[k0 + j], rhs[k0 + j], p[j]);
+  }
+#pragma unroll
+  for (int s = 16; s >= 1; s /= 2) {
+#pragma unroll
+    for (int j = 0; j < s; ++j) p[j] += p[j + s];
+  }
+  return p[0];
+}
+
+// `iterations` over-relaxed ADMM sweeps, in place on v.x, v.z, v.y, with
+// Kinv read where it lies (ld ldk):
 //   rhs = sigma x - q + d (P0^T (es (rho z - y)))
 //   xt  = Kinv rhs,   zt = es (P0 (d xt))
 //   x   = alpha xt + (1 - alpha) x,   zbar = alpha zt + (1 - alpha) z
@@ -666,43 +798,11 @@ __host__ __device__ ADMM_NOINLINE void admm_iterations(const Team<NL>& t, const 
                                          float sigma, float alpha) {
   const int nb = n / 3;
   for (int it = 0; it < iterations; ++it) {
-    for (int b = t.lane; b < nb; b += NL) {
-      float w[RPB];
-      for (int r = 0; r < RPB; ++r) {
-        const int row = RPB * b + r;
-        w[r] = v.es[row] * (v.rho[row] * v.z[row] - v.y[row]);
-      }
-      const float pv[3] = {w[0] - w[1], w[2] - w[3],
-                           (((mu * w[0] + mu * w[1]) + mu * w[2]) + mu * w[3]) + w[4]};
-      for (int c = 0; c < 3; ++c) {
-        const int j = 3 * b + c;
-        v.rhs[j] = (sigma * v.x[j] - v.q[j]) + v.d[j] * pv[c];
-      }
-    }
+    for (int b = t.lane; b < nb; b += NL) block_rhs(v, b, mu, sigma);
     t.sync();
-    for (int i = t.lane; i < n; i += NL) {
-      const float* row = Kinv + (long long)i * ldk;
-      float acc = 0.0f;
-      for (int k = 0; k < n; ++k) acc = fmaf(row[k], v.rhs[k], acc);
-      v.xt[i] = acc;
-    }
+    for (int i = t.lane; i < n; i += NL) v.xt[i] = row_times(Kinv + (long long)i * ldk, v.rhs, n);
     t.sync();
-    for (int b = t.lane; b < nb; b += NL) {
-      float s[3];
-      for (int c = 0; c < 3; ++c) s[c] = v.d[3 * b + c] * v.xt[3 * b + c];
-      for (int r = 0; r < RPB; ++r) {
-        const int row = RPB * b + r;
-        const float zt = v.es[row] * pyramid_row(r, mu, s);
-        const float zbar = alpha * zt + (1.0f - alpha) * v.z[row];
-        const float znew = clip(zbar + v.y[row] / v.rho[row], v.lo[row], v.hi[row]);
-        v.y[row] = v.y[row] + v.rho[row] * (zbar - znew);
-        v.z[row] = znew;
-      }
-      for (int c = 0; c < 3; ++c) {
-        const int j = 3 * b + c;
-        v.x[j] = alpha * v.xt[j] + (1.0f - alpha) * v.x[j];
-      }
-    }
+    for (int b = t.lane; b < nb; b += NL) block_update(v, b, mu, alpha, sigma, false);
     t.sync();
   }
 }
@@ -716,11 +816,17 @@ __host__ __device__ inline float* carve(float* f, int n, int m, Vecs& v) {
   return f;
 }
 
-// Operands of one scenario for the iterate and fused kernels.
+// Operands of the iterate and fused kernels: batch-major, or one scenario's.
 struct IterArgs {
   const float *q, *d, *es, *rho, *lo, *hi, *x0, *z0, *y0;
   float *x, *y;
 };
+
+__host__ __device__ inline IterArgs scenario_args(const IterArgs& a, long long s, int n, int m) {
+  const long long sn = s * n, sm = s * m;
+  return IterArgs{a.q + sn, a.d + sn, a.es + sm, a.rho + sm, a.lo + sm, a.hi + sm,
+                  a.x0 + sn, a.z0 + sm, a.y0 + sm, a.x + sn, a.y + sm};
+}
 
 template <int NL>
 __host__ __device__ void load_iter_vectors(const Team<NL>& t, const IterArgs& a, int n,
@@ -762,6 +868,238 @@ __host__ __device__ void iterate_one(const Team<NL>& t, const float* Kinv, float
   load_iter_vectors(t, a, n, m, v);
   admm_iterations(t, Kv, ldk, n, mu, v, iterations, sigma, alpha);
   store_iter_result(t, a, n, m, v);
+}
+
+// ---------------------------------------------------------------------------
+// Kernel 3's register path (n <= REG_N): persistent blocks of RES_THREADS
+// lanes, block b taking scenarios b, b + blocks, ...  A scenario's Kinv
+// stays in its lanes' registers for all its sweeps, while the next
+// scenario's Kinv and vectors arrive in the stage by bulk copy.
+// ---------------------------------------------------------------------------
+
+// The copies and their barrier.  On the card a Hopper mbarrier in shared
+// memory that counts the bytes of cp.async.bulk copies (TMA); on the host
+// (admm_host.cpp has no register path; the lane harness runs it) plain
+// copies and a count of completed phases.  Inline PTX only where nvcc
+// compiles for the card.
+#if defined(__CUDACC__) && defined(__CUDA_ARCH__)
+#define ADMM_PTX 1
+#endif
+
+__host__ __device__ inline void copy_barrier_init(unsigned long long* bar) {
+#if defined(ADMM_PTX)
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;"
+               ::"r"((unsigned)__cvta_generic_to_shared(bar)) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+#elif !defined(__CUDACC__)
+  __atomic_store_n(bar, 0ull, __ATOMIC_RELEASE);
+#endif
+}
+
+// The issuing lane arms the barrier for `bytes` before its copies.  The
+// proxy fence orders the block's reads of the stage, which the issuing
+// lane has seen complete at a block barrier, before the copies' writes.
+__host__ __device__ inline void copy_expect(unsigned long long* bar, unsigned bytes) {
+#if defined(ADMM_PTX)
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               ::"r"((unsigned)__cvta_generic_to_shared(bar)), "r"(bytes) : "memory");
+#endif
+}
+
+// dst (shared) <- src (device memory), `bytes` a multiple of 16, both
+// 16-byte aligned.
+__host__ __device__ inline void copy_async(float* dst, const float* src, unsigned bytes,
+                                           unsigned long long* bar) {
+#if defined(ADMM_PTX)
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"((unsigned)__cvta_generic_to_shared(dst)), "l"(src), "r"(bytes),
+        "r"((unsigned)__cvta_generic_to_shared(bar)) : "memory");
+#elif !defined(__CUDACC__)
+  for (unsigned i = 0; i < bytes / 4; ++i) dst[i] = src[i];
+  (void)bar;
+#endif
+}
+
+// After the issuing lane's last copy: the host twin completes the phase.
+__host__ __device__ inline void copy_commit(unsigned long long* bar) {
+#if !defined(__CUDACC__)
+  __atomic_add_fetch(bar, 1ull, __ATOMIC_RELEASE);
+#endif
+}
+
+// Every lane: wait until the barrier's phase of parity `phase` completes.
+__host__ __device__ inline void copy_wait(unsigned long long* bar, unsigned phase) {
+#if defined(ADMM_PTX)
+  const unsigned a = (unsigned)__cvta_generic_to_shared(bar);
+  unsigned done = 0;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done) : "r"(a), "r"(phase) : "memory");
+  } while (!done);
+#elif !defined(__CUDACC__)
+  while ((__atomic_load_n(bar, __ATOMIC_ACQUIRE) & 1ull) == phase) sched_yield();
+#endif
+}
+
+constexpr long long COPY_CHUNK = 8192;  // floats of one bulk copy of Kinv (32 KB)
+
+// Lane 0: scenario s's Kinv (ld n) and its nine vectors into the stage,
+// all reported to `bar`.  Sizes are 576 h^2, 48 h and 80 h bytes (n = 12h,
+// m = 20h): multiples of 16.  The barrier counts a scenario's bytes in one
+// phase (157,440 at h = 16; its count takes at most 2^20 - 1).
+__host__ __device__ inline void fetch_scenario(const float* Kinv, const IterArgs& a, long long s,
+                                               int n, int m, float* stage,
+                                               unsigned long long* bar) {
+  const long long nn = (long long)n * n;
+  copy_expect(bar, (unsigned)(4 * stage_floats(n, m)));
+  for (long long off = 0; off < nn; off += COPY_CHUNK) {
+    const long long len = nn - off < COPY_CHUNK ? nn - off : COPY_CHUNK;
+    copy_async(stage + off, Kinv + s * nn + off, (unsigned)(4 * len), bar);
+  }
+  const IterArgs o = scenario_args(a, s, n, m);
+  const float* src[9] = {o.q, o.d, o.x0, o.es, o.rho, o.lo, o.hi, o.z0, o.y0};
+  float* dst = stage + nn;
+  for (int i = 0; i < 9; ++i) {
+    const int len = i < 3 ? n : m;
+    copy_async(dst, src[i], 4u * len, bar);
+    dst += len;
+  }
+  copy_commit(bar);
+}
+
+// v from lane (lane ^ mask) of the warp.
+__host__ __device__ inline float shfl_xor(float v, int mask) {
+#ifdef __CUDA_ARCH__
+  return __shfl_xor_sync(0xffffffffu, v, mask);
+#else
+  return v;  // not reached: only the register path shuffles, on 32-lane warps
+#endif
+}
+
+// A warp's tile of K (ld ldk), RES_ROWS rows from row0 by RES_COLS * 32
+// columns from col0: lane L holds in slot (r, c) the element at row
+// row0 + (r ^ ((L >> 1) & 15)) and column col0 + L + 32 c, zero outside
+// n x n.  A row's columns lie on consecutive lanes, so a load of the warp
+// reads consecutive addresses.
+__host__ __device__ ADMM_INLINE void load_tile(const float* K, long long ldk, int n, int row0,
+                                               int col0, int lane,
+                                               float (&k)[RES_ROWS][RES_COLS]) {
+#pragma unroll
+  for (int r = 0; r < RES_ROWS; ++r)
+#pragma unroll
+    for (int c = 0; c < RES_COLS; ++c) {
+      const int i = row0 + (r ^ ((lane >> 1) & 15)), j = col0 + lane + 32 * c;
+      k[r][c] = (i < n && j < n) ? K[i * ldk + j] : 0.0f;
+    }
+}
+
+// acc[r] += the tile's part of lane L's partial chain p_L (row_times) for
+// the row of slot r: 16 independent fmaf chains in increasing k < n.
+__host__ __device__ ADMM_INLINE void tile_chains(const float (&k)[RES_ROWS][RES_COLS],
+                                                 const float* rhs, int n, int col0, int lane,
+                                                 float (&acc)[RES_ROWS]) {
+  float x[RES_COLS];
+#pragma unroll
+  for (int c = 0; c < RES_COLS; ++c) {
+    const int j = col0 + lane + 32 * c;
+    x[c] = j < n ? rhs[j] : 0.0f;
+  }
+#pragma unroll
+  for (int c = 0; c < RES_COLS; ++c) {
+    if (col0 + lane + 32 * c < n) {
+#pragma unroll
+      for (int r = 0; r < RES_ROWS; ++r) acc[r] = fmaf(k[r][c], x[c], acc[r]);
+    }
+  }
+}
+
+// xt's rows [row0, row0 + RES_ROWS) from the warp's chains: row_times'
+// tree as a reduce-scatter butterfly.  At strides 16, 8, 4, 2 a lane keeps
+// the first half of its slots and adds its partner's second half, which
+// holds the same rows (the partner's permutation in load_tile differs in
+// that stride's bit), so 8 + 4 + 2 + 1 shuffles leave lanes 2i and 2i + 1
+// with row row0 + i, and one more sums them; lane 2i writes it.
+__host__ __device__ ADMM_INLINE void tree_rows(float (&acc)[RES_ROWS], float* xt, int n,
+                                               int row0, int lane) {
+  static_assert(RES_ROWS == 16, "four halving stages");
+#pragma unroll
+  for (int r = 0; r < 8; ++r) acc[r] += shfl_xor(acc[r + 8], 16);
+#pragma unroll
+  for (int r = 0; r < 4; ++r) acc[r] += shfl_xor(acc[r + 4], 8);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) acc[r] += shfl_xor(acc[r + 2], 4);
+  acc[0] += shfl_xor(acc[1], 2);
+  const float sum = acc[0] + shfl_xor(acc[0], 1);
+  const int i = row0 + (lane >> 1);
+  if (!(lane & 1) && i < n) xt[i] = sum;
+}
+
+// Kernel 3 at n <= REG_N, one block's scenarios.  Shared memory: the
+// stage (resident_floats).  Per scenario: wait for its copies, move Kinv
+// to registers (row-major, consecutive lanes on consecutive columns) and
+// the vectors to the sweeps' buffers, start the next scenario's copies,
+// sweep, store.  Each lane stores the x and y elements it copies in, so
+// the next scenario's copy-in needs no barrier after the stores.
+template <int NL>
+__host__ __device__ ADMM_INLINE void iterate_resident(const Team<NL>& t, const float* Kinv,
+                                                      const IterArgs& a, long long B, int n,
+                                                      int m, float mu, int iterations,
+                                                      float sigma, float alpha, long long block,
+                                                      long long blocks, float* smem) {
+  static_assert(NL == RES_THREADS, "the register tile is split over RES_THREADS lanes");
+  const long long nn = (long long)n * n;
+  float* stage = smem;
+  const float* sv = stage + nn;  // q, d, x0 (n); es, rho, lo, hi, z0, y0 (m)
+  Vecs v;
+  unsigned long long* bar =
+      reinterpret_cast<unsigned long long*>(carve(smem + stage_floats(n, m), n, m, v));
+  const int lane = t.lane % 32, row0 = RES_ROWS * (t.lane / 32), nb = n / 3;
+  if (t.lane == 0) {
+    copy_barrier_init(bar);
+    if (block < B) fetch_scenario(Kinv, a, block, n, m, stage, bar);
+  }
+  t.sync();
+  unsigned phase = 0;
+  for (long long s = block; s < B; s += blocks) {
+    copy_wait(bar, phase);
+    phase ^= 1u;
+    float k[RES_ROWS][RES_COLS];
+    load_tile(stage, n, n, row0, 0, lane, k);
+    for (int i = t.lane; i < n; i += NL) {
+      v.q[i] = sv[i]; v.d[i] = sv[n + i]; v.x[i] = sv[2 * n + i];
+    }
+    const float* svm = sv + 3 * n;
+    for (int i = t.lane; i < m; i += NL) {
+      v.es[i] = svm[i]; v.rho[i] = svm[m + i]; v.lo[i] = svm[2 * m + i];
+      v.hi[i] = svm[3 * m + i]; v.z[i] = svm[4 * m + i]; v.y[i] = svm[5 * m + i];
+    }
+    t.sync();  // the stage is read: the next scenario may arrive in it
+    if (t.lane == 0 && s + blocks < B) fetch_scenario(Kinv, a, s + blocks, n, m, stage, bar);
+    for (int b = t.lane; b < nb; b += NL) block_rhs(v, b, mu, sigma);
+    t.sync();
+    // The lane that updates block b computes its next rhs, so a sweep has
+    // two barriers: rhs before the product, xt after it.
+    for (int it = 0; it < iterations; ++it) {
+      if (row0 < n) {
+        float acc[RES_ROWS];
+#pragma unroll
+        for (int r = 0; r < RES_ROWS; ++r) acc[r] = 0.0f;
+        tile_chains(k, v.rhs, n, 0, lane, acc);
+        tree_rows(acc, v.xt, n, row0, lane);
+      }
+      t.sync();
+      for (int b = t.lane; b < nb; b += NL)
+        block_update(v, b, mu, alpha, sigma, it + 1 < iterations);
+      t.sync();
+    }
+    const IterArgs o = scenario_args(a, s, n, m);
+    for (int i = t.lane; i < n; i += NL) o.x[i] = v.x[i];
+    for (int i = t.lane; i < m; i += NL) o.y[i] = v.y[i];
+  }
 }
 
 // Kernel 4, one scenario: invert K in place into l.X (Kinv, ld n + 1),

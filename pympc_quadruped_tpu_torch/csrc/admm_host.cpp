@@ -1,10 +1,10 @@
 // Host build of the condensed-ADMM kernels' arithmetic: the same C
-// launchers as admm.cu, running each scenario's block on the CPU with one
-// lane (admm::Team<1>, no-op barrier) and heap buffers in place of shared
-// memory.  The CPU tests compile it with the host C++ compiler and drive it
-// through the same ctypes binding as the CUDA library, so the kernels' own
-// per-scenario code (admm.cuh) is checked against the JAX reference without
-// a card.
+// launchers as admm.cu and admm_iterate.cu, running each scenario's block
+// on the CPU with one lane (admm::Team<1>, no-op barrier) and heap buffers
+// in place of shared memory.  The CPU tests compile it with the host C++
+// compiler and drive it through the same ctypes binding as the CUDA
+// library, so the kernels' own per-scenario code (admm.cuh) is checked
+// against the JAX reference without a card.
 #include <vector>
 
 #include "admm.cuh"
@@ -47,16 +47,13 @@ extern "C" int admm_iterate_launch(const float* Kinv, const float* q, const floa
                                    const float* z0, const float* y0, float* x, float* y,
                                    int B, int n, int m, int iterations, float sigma,
                                    float alpha, void* /*stream*/) {
-  std::vector<float> smem = block_smem(admm::ITERATE, n, m);
-  const bool on_chip = admm::on_chip(admm::ITERATE, n, m);
-  float* kinv = on_chip ? smem.data() : nullptr;
-  float* vecs = on_chip ? smem.data() + admm::x_floats(n) : smem.data();
-  for (long long b = 0; b < B; ++b) {
-    admm::IterArgs s{q + b * n, d + b * n, es + b * m, rho + b * m, l + b * m, u + b * m,
-                     x0 + b * n, z0 + b * m, y0 + b * m, x + b * n, y + b * m};
-    admm::iterate_one(kTeam, Kinv + b * n * n, kinv, s, n, m, P0[2], iterations, sigma, alpha,
-                      vecs);
-  }
+  // Kinv on "chip" (ld n + 1) and the vectors: the one-lane sweeps compute
+  // xt in admm::row_times' order, which the card's register path keeps.
+  std::vector<float> smem(admm::x_floats(n) + 5LL * n + 6LL * m);
+  const admm::IterArgs a{q, d, es, rho, l, u, x0, z0, y0, x, y};
+  for (long long b = 0; b < B; ++b)
+    admm::iterate_one(kTeam, Kinv + b * n * n, smem.data(), admm::scenario_args(a, b, n, m), n,
+                      m, P0[2], iterations, sigma, alpha, smem.data() + admm::x_floats(n));
   return 0;
 }
 
@@ -68,9 +65,9 @@ extern "C" int admm_fused_launch(const float* K, const float* q, const float* d,
                                  float alpha, int ns_iters, void* /*stream*/) {
   const long long nn = (long long)n * n, wf = admm::workspace_floats(admm::FUSED, n, m);
   std::vector<float> smem = block_smem(admm::FUSED, n, m);
+  const admm::IterArgs a{q, d, es, rho, l, u, x0, z0, y0, x, y};
   for (long long b = 0; b < B; ++b) {
-    admm::IterArgs s{q + b * n, d + b * n, es + b * m, rho + b * m, l + b * m, u + b * m,
-                     x0 + b * n, z0 + b * m, y0 + b * m, x + b * n, y + b * m};
+    const admm::IterArgs s = admm::scenario_args(a, b, n, m);
     float* w = ws + b * wf;
     admm::with_layout(admm::FUSED, n, m, smem.data(), w, [&](const admm::Layout& lay, auto p) {
       admm::fused_one<1, decltype(p)::on_chip>(kTeam, K + b * nn, lay, s, n, m, P0[2], iterations,

@@ -1,10 +1,10 @@
-"""Wrapper of the hand-written CUDA condensed-ADMM kernels (``csrc/admm.cu``,
-arithmetic in ``csrc/admm.cuh``).
+"""Wrapper of the hand-written CUDA condensed-ADMM kernels (``csrc/admm.cu``
+and ``csrc/admm_iterate.cu``, arithmetic in ``csrc/admm.cuh``).
 
 Each entry has the signature and returns of its JAX counterpart in
 ``pympc_quadruped_tpu/ops/qp/admm_pallas.py``, without the Pallas tile
-arguments (the kernels run one thread block per scenario, take any B and
-any n = 12h, and mask their own ragged edges):
+arguments (the kernels take any B and any n = 12h, and mask their own
+ragged edges):
 
 ============================  ===================  ==============================
 entry                         kernel               replaces (admm_pallas.py)
@@ -54,7 +54,9 @@ def _check(name, t, shape, device):
 
 
 def _check_aligned(name, t):
-    """The inverting kernels read K's rows 16 bytes at a time."""
+    """The inverting kernels read K's rows 16 bytes at a time, and the
+    iterate kernel brings its operands to shared memory by 16-byte bulk
+    copies."""
     if t.data_ptr() % 16:
         raise ValueError(f"{name}: the kernels need a 16-byte aligned start")
 
@@ -73,8 +75,9 @@ def _dims(lib, n, m):
     _check_n(lib, n)
 
 
-def _target(t: torch.Tensor, lib):
-    """(library, stream) to launch with, or None for the plain version."""
+def _target(t: torch.Tensor, lib, source="admm"):
+    """(library, stream) to launch with, or None for the plain version; the
+    CUDA library is the one built from ``csrc/<source>.cu``."""
     stream = torch.cuda.current_stream(t.device).cuda_stream if t.is_cuda else None
     if lib is not None:
         return lib, stream
@@ -82,7 +85,7 @@ def _target(t: torch.Tensor, lib):
         return None
     if t.device.type != "cuda":
         raise ValueError(f"admm_cuda: unsupported device {t.device}")
-    return _build.load("admm").lib, stream
+    return _build.load(source).lib, stream
 
 
 def _run(t: torch.Tensor, name: str, fn, *args) -> None:
@@ -107,6 +110,18 @@ def invert_occupancy(lib, n: int) -> dict:
     if rc != 0:
         raise RuntimeError(f"admm_invert_kernel occupancy query failed: CUDA error {rc}")
     return {"blocks_per_sm": out[0], "smem_per_block": out[1]}
+
+
+def iterate_config(lib, B: int, n: int, m: int) -> dict:
+    """How the iterate kernel launches at (B, n, m): threads a block,
+    blocks (persistent, at most one per SM, at n <= 192), dynamic shared
+    memory bytes a block, and blocks resident per SM."""
+    out = (ctypes.c_int * 4)()
+    rc = lib.admm_iterate_config(B, n, m, ctypes.addressof(out))
+    if rc != 0:
+        raise RuntimeError(f"admm_iterate_kernel configuration query failed: CUDA error {rc}")
+    return {"threads": out[0], "grid": out[1], "smem_per_block": out[2],
+            "blocks_per_sm": out[3]}
 
 
 def _workspace(lib, kernel, B, n, m, device) -> torch.Tensor:
@@ -163,17 +178,23 @@ def iterate(ops: AdmmOperands, P0: torch.Tensor, cfg: admm_fast.AdmmFastConfig,
     SCALED (x (B,n), y (B,m)), like ``admm_fast.iterate_jnp``; ``init`` is
     an optional scaled warm start (x0, z0, y0).  P0 must be
     ``admm_fast.cone_pattern``: the kernel reads mu from P0[0, 2] and
-    applies the pattern block by block."""
+    applies the pattern block by block.  Kinv and the vectors the kernel
+    copies in (q, d, es, rho, l, u, x0, z0, y0) must start 16-byte
+    aligned."""
     if not isinstance(ops, AdmmOperands):
         raise TypeError(
             "iterate needs AdmmOperands (setup(invert=True)); got "
             f"{type(ops).__name__}: route it to iterate_fused()"
         )
-    target = _target(ops.q, lib)
+    target = _target(ops.q, lib, "admm_iterate")
     if target is None:
         return admm_fast.iterate_jnp(ops, P0, cfg, init)
     lib, stream = target
     args, (B, n, m) = _iter_operands(lib, ops, "Kinv", P0, init)
+    names = ("Kinv", "q", "d", "es", "rho", "l", "u", "P0", "x0", "z0", "y0")
+    for name, t in zip(names, (ops.Kinv, *args)):
+        if name != "P0":
+            _check_aligned(name, t)
     _run(ops.q, "iterate", lib.admm_iterate_launch,
          *(t.data_ptr() for t in (ops.Kinv, *args)),
          B, n, m, int(cfg.iterations), float(cfg.sigma), float(cfg.alpha), stream)

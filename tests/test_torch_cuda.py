@@ -88,7 +88,7 @@ def test_cuda_condensed_closed_loop_goes_through_the_kernels(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,h", [(256, 16), (130, 16), (33, 17)])
+@pytest.mark.parametrize("B,h", [(256, 16), (130, 16), (33, 17), (130, 7), (33, 20)])
 def test_cuda_condensed_kernels_match_plain(cuda_device, B, h):
     """Kernels 2-5 against their plain versions with the bars of
     chip_smoke.py phase 5: the invert kernel's f64 residual within 2x of
@@ -96,7 +96,10 @@ def test_cuda_condensed_kernels_match_plain(cuda_device, B, h):
     batch kernel gate (f64 cost excess, cone rows, predicted CoM
     trajectory), cold and warm-started.  At h=16 the inverting kernels
     keep their buffers in shared memory; at h=17 they do not fit and lie
-    in the device-memory workspace."""
+    in the device-memory workspace.  The iterate kernel holds Kinv in
+    registers to h=16 (at h=7 most of the tile masked, over a ragged
+    batch), in shared memory at h=17 and reads it from device memory at
+    h=20."""
     p = condensed_problem(B, 11, cuda_device, h=h)
     args = (p.H, p.g, p.table, p.robot.fz_max, p.mpc)
     K = admm_fast.setup(*args, admm_fast.AdmmFastConfig(), invert=False).K
