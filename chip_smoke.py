@@ -43,13 +43,39 @@ result):
 7. condensed times with CUDA events: one in-loop h=16 solve at B=4096 per
    backend, each kernel alone against its plain version (and the invert
    kernel against ``torch.linalg.inv``), the invert kernel alone without
-   its Newton-Schulz step, one 20-tick period.
+   its Newton-Schulz step, one 20-tick period;
+8. ``srb_env.rollout``, the port's closed-loop entry point, on phase 3's
+   scenarios with each solver: its non-solve ticks replay one captured CUDA
+   graph.  The first 100 ticks must equal eager ``run_ticks`` bit for bit
+   (any leaf that differs is named, and must stay within 1e-6 relative);
+   3000 ticks must keep >= 99% in phase 3's band with one launch of each
+   of the solver's kernels per solve tick (150).  Then, from tick 3000: the
+   20-tick period against the 20 ms limit, the eager solve tick and one
+   replayed non-solve tick (CUDA events, medians of 10 periods), the
+   graph's kernel and copy nodes, and the device's busy share over two
+   periods (``torch.profiler``: kernel time over the periods' time);
+9. the estimator ``rollout`` as the JAX bench runs it (bench.py:914-960):
+   A1, h=10, TROTTING10 at 0.8 m/s, ``KfParams.default()``,
+   ``SensorNoise.default()``, ``cmd_ramp_ticks=300``, the default solver,
+   B=4096, 2000 ticks, no auto-reset: >= 99% survive (height above 0.1 m,
+   upright above 0.6 over the last quarter, never diverged), the
+   estimator's position and velocity errors p50/p99 over the last three
+   quarters, and their means over ticks 400-599 (the last 200 of
+   tests/test_kf.py's 600-tick run) within tests/test_kf.py:286-287 (0.1 m,
+   0.25 m/s); over the last 200 ticks the velocity error is held to 0.25
+   m/s and the position error, whose x/y the filter cannot observe and
+   which random-walks (tests/test_kf.py:247-250), is printed;
+10. ``sweep.gait_sweep`` at B=4096 over trotting10 / pacing10 / bounding8,
+   h=10, 3000 ticks, held to tests/test_gait_sweep.py:34-48: survival 1.0,
+   tail velocity error below 0.3 m/s, forward displacement above 60% of
+   the command's.
 
 The last two lines are the kernel summary and the device record.  Imports
 torch, numpy and the port only.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import json
 import os
@@ -64,8 +90,10 @@ from pympc_quadruped_tpu_torch import _build, tree
 from pympc_quadruped_tpu_torch.control import controller as ctrl
 from pympc_quadruped_tpu_torch.control import refmpc
 from pympc_quadruped_tpu_torch.env import srb_env
+from pympc_quadruped_tpu_torch.estimation import kf
 from pympc_quadruped_tpu_torch.loop import run_ticks
-from pympc_quadruped_tpu_torch.models import Command, Gaits, aliengo, default_mpc_params
+from pympc_quadruped_tpu_torch.models import Command, Gaits, a1, aliengo, default_mpc_params
+from pympc_quadruped_tpu_torch.parallel import sweep
 from pympc_quadruped_tpu_torch.ops import condense, lie, srb
 from pympc_quadruped_tpu_torch.ops.qp import admm_cuda, admm_fast, riccati, riccati_cuda
 
@@ -253,6 +281,10 @@ def closed_loop_setup(dev, B=None):
     return mpc, robot, gait, cmd, carry, jittered_init(robot, B, seed=31, dev=dev)
 
 
+def kernel_launches() -> dict:
+    return {"riccati_admm": riccati_cuda.LAUNCHES, **admm_cuda.LAUNCHES}
+
+
 def reset_launches():
     riccati_cuda.LAUNCHES = 0
     for name in admm_cuda.LAUNCHES:
@@ -278,7 +310,7 @@ def phase_closed_loop(dev, solver, phase):
             vel_err_sum += torch.linalg.vector_norm(state.vel - vel_des, dim=-1)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"riccati_admm": riccati_cuda.LAUNCHES, **admm_cuda.LAUNCHES}
+    launches = kernel_launches()
     n_solves = N_TICKS // PERIOD
     on_path = ("riccati_admm",) if solver == "riccati" else ("invert_spd", "iterate")
     for name, count in launches.items():
@@ -584,6 +616,209 @@ def phase_condensed_times(dev, card, loop_state):
     return times, launches
 
 
+# ---------------------------------------------------------------------------
+# The rollout, its estimator mode and the gait sweep
+# ---------------------------------------------------------------------------
+
+def bitwise_report(got, want, rel_bar=1e-6):
+    """Leaves of two trees that are not bit for bit equal: {name: max
+    relative difference}; fails if one exceeds ``rel_bar``."""
+    diffs = {}
+
+    def walk(a, b, name):
+        if dataclasses.is_dataclass(a):
+            for f in dataclasses.fields(a):
+                walk(getattr(a, f.name), getattr(b, f.name), f"{name}.{f.name}")
+        elif isinstance(a, tuple):
+            for i, (x, y) in enumerate(zip(a, b)):
+                walk(x, y, f"{name}[{i}]")
+        elif not torch.equal(a, b):
+            x, y = a.double(), b.double()
+            diffs[name] = float(((x - y).abs() / y.abs().clamp(min=1e-30)).max())
+    walk(got, want, "")
+    for name, rel in diffs.items():
+        check(rel <= rel_bar, f"rollout leaf {name} differs from eager by {rel:.3e} relative")
+    return diffs
+
+
+def graph_nodes(graph) -> dict:
+    """Node counts by type of a captured graph (``keep_graph=True``), read
+    through libcuda (cuGraphGetNodes): node type 0 kernel, 1 memcpy, 2 memset."""
+    cu = ctypes.CDLL("libcuda.so.1")
+    handle = ctypes.c_void_p(int(graph.raw_cuda_graph()))
+    n = ctypes.c_size_t(0)
+    check(cu.cuGraphGetNodes(handle, None, ctypes.byref(n)) == 0, "cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    check(cu.cuGraphGetNodes(handle, nodes, ctypes.byref(n)) == 0, "cuGraphGetNodes failed")
+    names = {0: "kernel", 1: "memcpy", 2: "memset"}
+    counts = {}
+    for node in nodes:
+        t = ctypes.c_int(-1)
+        cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(t))
+        key = names.get(t.value, f"type{t.value}")
+        counts[key] = counts.get(key, 0) + 1
+    return counts
+
+
+def time_rollout_periods(loop, periods=10):
+    """Medians over ``periods`` 20-tick periods of ``loop`` (which must
+    start on a solve tick): the period, its eager solve tick, and one
+    replayed non-solve tick, in ms by CUDA events."""
+    rows = []
+    for _ in range(periods):
+        e = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        e[0].record()
+        loop.step()
+        e[1].record()
+        for _ in range(PERIOD - 1):
+            loop.step()
+        e[2].record()
+        torch.cuda.synchronize()
+        rows.append((e[0].elapsed_time(e[2]), e[0].elapsed_time(e[1]),
+                     e[1].elapsed_time(e[2]) / (PERIOD - 1)))
+    return [float(v) for v in np.median(np.array(rows), axis=0)]
+
+
+def busy_share(loop, periods=2) -> float:
+    """Kernel time on the card over the time of ``periods`` periods, both
+    from ``torch.profiler`` and CUDA events over the same window."""
+    from torch.profiler import ProfilerActivity, profile
+
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        e0.record()
+        for _ in range(periods * PERIOD):
+            loop.step()
+        e1.record()
+        torch.cuda.synchronize()
+    kernel_us = sum(ev.time_range.elapsed_us() for ev in prof.events()
+                    if ev.device_type == torch.autograd.DeviceType.CUDA)
+    check(kernel_us > 0, "the profiler recorded no time on the card")
+    return kernel_us / 1e3 / e0.elapsed_time(e1)
+
+
+def phase_rollout(dev, card, solver):
+    """Phase 8 for one solver; returns the launch counts of the 3000-tick
+    rollout and the timing record."""
+    mpc, robot, gait, cmd, carry, state = closed_loop_setup(dev)
+    B = B_MAIN
+    carry_e, state_e, _ = run_ticks(robot, mpc, gait, cmd, carry, state, 0, 100, solver)
+    (state_g, carry_g), _ = srb_env.rollout(robot, mpc, gait, cmd, 100, init_state=state,
+                                            solver=solver)
+    torch.cuda.synchronize()
+    diffs = bitwise_report((state_g, carry_g), (state_e, carry_e))
+    print(f"phase 8: rollout solver={solver} B={B}: first 100 ticks against eager run_ticks: "
+          + ("bitwise equal" if not diffs else f"differ in {diffs} (bar 1e-6 relative)"),
+          flush=True)
+
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    (state_f, carry_f), m = srb_env.rollout(robot, mpc, gait, cmd, N_TICKS, init_state=state,
+                                            solver=solver)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernel_launches()
+    n_solves = N_TICKS // PERIOD
+    on_path = ("riccati_admm",) if solver == "riccati" else ("invert_spd", "iterate")
+    for name, count in launches.items():
+        check(count == (n_solves if name in on_path else 0),
+              f"rollout {solver}: kernel {name} launched {count} times, expected "
+              f"{n_solves if name in on_path else 0}")
+    check(all(tuple(v.shape) == (N_TICKS, B) for v in m.values()), "rollout metric shapes")
+    vel_err = m["vel_err"][-BAND_TICKS:].mean(dim=0)
+    height, x = state_f.pos[:, 2], state_f.pos[:, 0]
+    ok = ((~m["diverged"].any(dim=0)) & (vel_err < 0.15) & (height > 0.34) & (height < 0.42)
+          & (x > 2.0))
+    share = float(ok.float().mean())
+    counts = ", ".join(f"{k} {launches[k]}" for k in on_path)
+    print(f"phase 8: rollout solver={solver} B={B} h={HORIZON} {N_TICKS} ticks in {wall:.1f} s "
+          f"(capture included): {int(ok.sum())}/{B} in band ({share:.4f}, bar {BAND_SHARE}); "
+          f"kernel launches {counts}; median vel_err {float(vel_err.median()):.4f} m/s, median "
+          f"final height {float(height.median()):.4f} m, median x {float(x.median()):.3f} m",
+          flush=True)
+    check(share >= BAND_SHARE, f"rollout {solver}: only {share:.4f} of scenarios in the band")
+
+    t0 = time.perf_counter()
+    loop = srb_env.RolloutLoop(robot, mpc, gait, cmd, PERIOD * 14, init_state=state_f,
+                               carry_in=carry_f, tick0=N_TICKS, solver=solver)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    nodes = graph_nodes(loop.graph)
+    for _ in range(2 * PERIOD):
+        loop.step()
+    period, solve_tick, replay_tick = time_rollout_periods(loop)
+    busy = busy_share(loop)
+    print(f"phase 8: rollout solver={solver} B={B}: one {PERIOD}-tick period {period:.3f} ms "
+          f"against the 20 ms real-time limit; eager solve tick {solve_tick:.3f} ms, replayed "
+          f"non-solve tick {replay_tick:.3f} ms; graph of the non-solve tick: {nodes} nodes, "
+          f"captured in {capture_s:.2f} s (setup included); device busy {busy:.3f} of two "
+          f"periods (profiler on) [{card}]", flush=True)
+    return launches, dict(period_ms=period, solve_tick_ms=solve_tick, replay_tick_ms=replay_tick,
+                          graph_nodes=nodes, busy_share=busy)
+
+
+def phase_estimator(dev, card):
+    """Phase 9: bench.py:914-960's estimator loop at B=4096."""
+    B, ticks = B_MAIN, 2000
+    mpc = default_mpc_params(10, device=dev)
+    robot = tree.tile(a1(device=dev), B)
+    gait = tree.tile(Gaits.trotting10(device=dev), B)
+    cmd = tree.tile(Command.trot_forward(0.8, device=dev), B)
+    reset_launches()
+    t0 = time.perf_counter()
+    (state, _), m = srb_env.rollout(
+        robot, mpc, gait, cmd, ticks, auto_reset=False, estimator=kf.KfParams.default(device=dev),
+        sensor_noise=srb_env.SensorNoise.default(dev), key=1, cmd_ramp_ticks=300)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernel_launches()
+    check(launches["invert_spd"] == ticks // PERIOD and launches["iterate"] == ticks // PERIOD,
+          f"estimator rollout: kernel launches {launches}")
+    alive = ((state.pos[:, 2] > 0.1) & (m["upright"][-ticks // 4:].amin(dim=0) > 0.6)
+             & ~m["diverged"].any(dim=0))
+    survival = float(alive.float().mean())
+    ep, ev = m["est_pos_err"][ticks // 4:], m["est_vel_err"][ticks // 4:]
+    q = torch.tensor([0.5, 0.99], device=dev)
+    ep_q = torch.quantile(ep.flatten(), q).tolist()
+    ev_q = torch.quantile(ev.flatten(), q).tolist()
+    # tests/test_kf.py holds a 600-tick run's last 200 ticks to its bars; here
+    # the same window, ticks 400-599.  Absolute x/y is unobservable, so the
+    # position estimate random-walks on: the last 200 of 2000 ticks are
+    # printed, and only the velocity error is held there.
+    pos_600, vel_600 = float(m["est_pos_err"][400:600].mean()), float(m["est_vel_err"][400:600].mean())
+    pos_tail, vel_tail = float(m["est_pos_err"][-200:].mean()), float(m["est_vel_err"][-200:].mean())
+    print(f"phase 9: estimator rollout A1 h=10 trotting10 0.8 m/s, KF + default sensor noise, "
+          f"ramp 300, B={B}, {ticks} ticks in {wall:.1f} s: survival {survival:.4f} (bar "
+          f"{BAND_SHARE}); est_pos_err p50 {ep_q[0]:.4f} / p99 {ep_q[1]:.4f} m, est_vel_err p50 "
+          f"{ev_q[0]:.4f} / p99 {ev_q[1]:.4f} m/s (ticks {ticks // 4}-{ticks}); "
+          f"means over ticks 400-599 {pos_600:.4f} m (bar 0.1), {vel_600:.4f} m/s (bar 0.25), "
+          f"over the last 200 ticks {pos_tail:.4f} m, {vel_tail:.4f} m/s (bar 0.25); "
+          f"kernel launches invert_spd {launches['invert_spd']}, iterate "
+          f"{launches['iterate']} [{card}]", flush=True)
+    check(survival >= BAND_SHARE, f"estimator rollout: survival {survival:.4f}")
+    check(pos_600 < 0.1 and vel_600 < 0.25 and vel_tail < 0.25,
+          "estimator rollout: estimate errors above the bars")
+
+
+def phase_gait_sweep(dev, card):
+    """Phase 10: the mixed-gait sweep at B=4096."""
+    names, ticks = ["trotting10", "pacing10", "bounding8"], 3000
+    robot_b = tree.tile(aliengo(device=dev), B_MAIN)
+    t0 = time.perf_counter()
+    _, per_gait = sweep.gait_sweep(robot_b, default_mpc_params(10, device=dev), names, ticks)
+    wall = time.perf_counter() - t0
+    for name in names:
+        s = per_gait[name]
+        expect = sweep.GAIT_SWEEP_VX[name] * ticks * 1e-3
+        print(f"phase 10: gait_sweep B={B_MAIN} h=10 {ticks} ticks ({wall:.1f} s) {name}: "
+              f"survival {s['survival_frac']:.4f} (bar 1.0), mean_vel_err "
+              f"{s['mean_vel_err']:.4f} m/s (bar 0.3), fwd_disp {s['fwd_disp_m']:.3f} m (bar "
+              f"{0.6 * expect:.2f}) [{card}]", flush=True)
+        check(s["survival_frac"] == 1.0 and s["mean_vel_err"] < 0.3
+              and s["fwd_disp_m"] > 0.6 * expect, f"gait_sweep {name}: outside the bars")
+
+
 def entry_report(log: str, kernel: str) -> str:
     """ptxas's register and spill lines for one kernel's entry function,
     and the largest spill store of any function in the library (the
@@ -649,12 +884,21 @@ def main() -> int:
     cond_err = phase_condensed_vs_plain(dev)
     cond_launches, loop_state = phase_closed_loop(dev, "admm_fast", 6)
     cond_times, backend_launches = phase_condensed_times(dev, card, loop_state)
+    del loop_state
+    rollout_launches, rollout_times = {}, {}
+    for solver in ("riccati", "admm_fast"):
+        launches, rollout_times[solver] = phase_rollout(dev, card, solver)
+        rollout_launches.update({k: v for k, v in launches.items() if v})
+    phase_estimator(dev, card)
+    phase_gait_sweep(dev, card)
 
     kernels = [{
         "name": "riccati_admm", "route": "cuda",
         "source": "pympc_quadruped_tpu_torch/csrc/riccati_admm.cu",
         "replaces": "pympc_quadruped_tpu/ops/qp/riccati_pallas.py:116",
-        "launches": ric_launches["riccati_admm"], "max_abs_err": max_err,
+        "launches": rollout_launches["riccati_admm"],
+        "launches_in": "rollout(solver='riccati'), 3000 ticks, 150 solves",
+        "launches_run_ticks": ric_launches["riccati_admm"], "max_abs_err": max_err,
         "err": "max|dU| [N] vs plain", **ric_times, "library_ms": None,
     }]
     replaces = {"invert_spd": 242, "iterate": 38, "iterate_fused": 374, "solve_full": 417}
@@ -664,7 +908,7 @@ def main() -> int:
             "solve_full": "max f64 relative cost excess over jnp (p99 bar 2e-5, max 1e-4)"}
     for name in ("invert_spd", "iterate", "iterate_fused", "solve_full"):
         on_loop = name in ("invert_spd", "iterate")
-        launches = (cond_launches[name] if on_loop else
+        launches = (rollout_launches[name] if on_loop else
                     backend_launches["pallas_fused" if name == "iterate_fused"
                                      else "pallas_full"][name])
         source = "admm_iterate.cu" if name == "iterate" else "admm.cu"
@@ -672,10 +916,12 @@ def main() -> int:
             "name": name, "route": "cuda", "source": f"pympc_quadruped_tpu_torch/csrc/{source}",
             "replaces": f"pympc_quadruped_tpu/ops/qp/admm_pallas.py:{replaces[name]}",
             "launches": launches,
-            "launches_in": ("admm_fast closed loop, 150 solves" if on_loop else
+            "launches_in": ("rollout(solver='admm_fast'), 3000 ticks, 150 solves" if on_loop else
                             "timed solve_batch runs of its backend"),
+            **({"launches_run_ticks": cond_launches[name]} if on_loop else {}),
             "max_abs_err": cond_err[name], "err": errs[name], **cond_times[name],
         })
+    print(json.dumps({"rollout": rollout_times}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,7 +4,11 @@ Per tick: obs -> kinematics -> gait phase -> [every Nth tick: MPC solve ->
 GRFs] -> swing-foot targets -> Jacobian-transpose torques.  Every argument
 except ``mpc`` and ``tick`` carries a leading scenario axis.  The JAX
 batch-level ``lax.cond`` solve gate is a host ``if`` on the shared Python
-int ``tick``, so the solve really runs only on solve ticks.
+int tick, so the solve really runs only on solve ticks.  The tick is split
+into pre-solve, solve and post-solve parts (:func:`step_gated`): the gate
+reads a host bool, the tick math reads ``tick``, which may be a 0-d device
+tensor, so a non-solve tick can be captured in a CUDA graph
+(``env.srb_env.rollout``).
 
 Ported solvers: ``"admm_fast"`` (the default; the condensed QP of
 :func:`refmpc.build_qp` solved by :mod:`..ops.qp.admm_fast`, whose CUDA
@@ -135,6 +139,55 @@ def _solve_branch(robot, mpc, cmd, mpc_carry, ks, x_t, vel_des_world, table,
     return dataclasses.replace(mpc_carry, contact_forces=forces), forces
 
 
+def _post_solve(robot, mpc, gait, cmd, carry, ks, swing_states, mpc_carry, forces):
+    """Swing targets and leg torques from the held forces."""
+    swing_carry, pos_t, vel_t = swing.update_swing(
+        robot, mpc, gait, cmd, ks, carry.swing, swing_states
+    )
+    torques = legctrl.leg_torques(robot, ks, forces, swing_states, pos_t, vel_t)
+    out = ControllerOutput(
+        torques=torques, contact_forces=forces, swing_states=swing_states,
+        pos_targets=pos_t, vel_targets=vel_t, kin=ks,
+    )
+    return ControllerCarry(mpc=mpc_carry, swing=swing_carry), out
+
+
+def is_solve_tick(mpc: MpcParams, tick: int) -> bool:
+    """The 50 Hz solve gate, on the host int tick."""
+    return int(tick) % mpc.iterations_between_mpc == 0
+
+
+def step_gated(
+    robot: RobotParams,
+    mpc: MpcParams,
+    gait: GaitParams,
+    cmd: Command,
+    carry: ControllerCarry,
+    obs: kin.RobotObs,
+    tick,
+    solve: bool,
+    solver: str = DEFAULT_SOLVER,
+    admm_fast_cfg: admm_fast.AdmmFastConfig = admm_fast.AdmmFastConfig.inloop(),
+    riccati_cfg: riccati.RiccatiConfig = riccati.RiccatiConfig.inloop(),
+):
+    """One batched tick with the solve gate given as the host bool
+    ``solve`` (:func:`is_solve_tick` of the host tick) and ``tick`` a Python
+    int or a 0-d int32 tensor on the batch's device.  With ``solve=False``
+    nothing here reads a device value on the host, so the tick can be
+    captured in a CUDA graph.  Returns (carry', ControllerOutput)."""
+    ks, swing_states, table, x_t, mpc_carry, vel_des_world = _pre_solve(
+        robot, mpc, gait, cmd, carry, obs, tick
+    )
+    if solve:
+        mpc_carry, forces = _solve_branch(
+            robot, mpc, cmd, mpc_carry, ks, x_t, vel_des_world, table, solver,
+            admm_fast_cfg, riccati_cfg,
+        )
+    else:
+        forces = mpc_carry.contact_forces
+    return _post_solve(robot, mpc, gait, cmd, carry, ks, swing_states, mpc_carry, forces)
+
+
 def step_batch(
     robot: RobotParams,
     mpc: MpcParams,
@@ -153,26 +206,8 @@ def step_batch(
     Returns (carry', ControllerOutput) with leading scenario axes."""
     check_solver(solver)
     tick = int(tick)
-    ks, swing_states, table, x_t, mpc_carry, vel_des_world = _pre_solve(
-        robot, mpc, gait, cmd, carry, obs, tick
-    )
-    if tick % mpc.iterations_between_mpc == 0:
-        mpc_carry, forces = _solve_branch(
-            robot, mpc, cmd, mpc_carry, ks, x_t, vel_des_world, table, solver,
-            admm_fast_cfg, riccati_cfg,
-        )
-    else:
-        forces = mpc_carry.contact_forces
-
-    swing_carry, pos_t, vel_t = swing.update_swing(
-        robot, mpc, gait, cmd, ks, carry.swing, swing_states
-    )
-    torques = legctrl.leg_torques(robot, ks, forces, swing_states, pos_t, vel_t)
-    out = ControllerOutput(
-        torques=torques, contact_forces=forces, swing_states=swing_states,
-        pos_targets=pos_t, vel_targets=vel_t, kin=ks,
-    )
-    return ControllerCarry(mpc=mpc_carry, swing=swing_carry), out
+    return step_gated(robot, mpc, gait, cmd, carry, obs, tick, is_solve_tick(mpc, tick),
+                      solver, admm_fast_cfg, riccati_cfg)
 
 
 def step(

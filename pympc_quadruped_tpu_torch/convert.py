@@ -9,7 +9,9 @@ dataclass), so both frameworks compute from the same numbers.
 
 Static fields (``MpcParams.horizon`` and friends) come back as Python
 ints/bools; every other leaf keeps its dtype (float32, int32, bool).
-The one nested carry, ``ControllerCarry``, has its own builder.
+The nested carries have functions of their own: ``ControllerCarry``, and the
+rollout's estimator-mode full carry ``(controller_carry, kf_state,
+held_forces)``.
 """
 from __future__ import annotations
 
@@ -22,7 +24,9 @@ import torch
 from pympc_quadruped_tpu_torch.control.controller import ControllerCarry
 from pympc_quadruped_tpu_torch.control.refmpc import MpcCarry
 from pympc_quadruped_tpu_torch.control.swing import SwingCarry
-from pympc_quadruped_tpu_torch.env.srb_env import SrbState
+from pympc_quadruped_tpu_torch.env.srb_env import SensorNoise, SrbState
+from pympc_quadruped_tpu_torch.env.terrain import Terrain
+from pympc_quadruped_tpu_torch.estimation.kf import KfParams, KfState
 from pympc_quadruped_tpu_torch.models.command import Command
 from pympc_quadruped_tpu_torch.models.gaits import GaitParams
 from pympc_quadruped_tpu_torch.models.mpc import MpcParams
@@ -64,6 +68,10 @@ mpc_carry = functools.partial(_build, MpcCarry)
 swing_carry = functools.partial(_build, SwingCarry)
 srb_state = functools.partial(_build, SrbState)
 robot_obs = functools.partial(_build, RobotObs)
+terrain = functools.partial(_build, Terrain)
+kf_params = functools.partial(_build, KfParams)
+kf_state = functools.partial(_build, KfState)
+sensor_noise = functools.partial(_build, SensorNoise)
 
 
 def controller_carry(arrays: dict, device="cuda") -> ControllerCarry:
@@ -71,3 +79,14 @@ def controller_carry(arrays: dict, device="cuda") -> ControllerCarry:
         mpc=mpc_carry(arrays["mpc"], device),
         swing=swing_carry(arrays["swing"], device),
     )
+
+
+def full_carry(arrays, device="cuda"):
+    """The rollout's full carry from the JAX one: a ``ControllerCarry``
+    (truth mode), or ``(controller_carry, kf_state, held_forces)`` given as
+    a tuple of (dict, dict, array) (estimator mode)."""
+    if isinstance(arrays, dict):
+        return controller_carry(arrays, device)
+    c, k, f = arrays
+    return (controller_carry(c, device), kf_state(k, device),
+            torch.from_numpy(np.array(f, copy=True)).to(device))

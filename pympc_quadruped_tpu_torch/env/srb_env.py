@@ -1,22 +1,37 @@
-"""Batched single-rigid-body physics (port of ``env/srb_env.py``).
+"""Batched single-rigid-body rollout environment (port of ``env/srb_env.py``).
 
 The trunk is one rigid body forced by the MPC's ground-reaction forces;
 stance feet stay pinned where they touched down, swing feet follow the
-controller's targets kinematically, and joint measurements are synthesized
-by closed-form IK.  Every function takes a leading scenario axis.  Ported so
-far: the flat-world tick (:func:`observe`, :func:`physics_step`) and the
-divergence test; ``rollout``, sensors, the Kalman filter and terrain wait
-(ROADMAP Queue 1, item 7).
+controller's targets kinematically (never below the ground), and joint
+measurements are synthesized by closed-form IK, or as noisy IMU and encoder
+readings for the Kalman filter.  Every function takes a leading scenario
+axis.
+
+:func:`rollout` is the closed loop.  JAX runs it as one compiled
+``lax.scan``; here, on a CUDA device, the non-solve tick is captured once
+per call as a ``torch.cuda.CUDAGraph`` over static state, carry, noise and
+metric buffers and a device tick counter, and replayed on every tick where
+``tick % iterations_between_mpc != 0``.  The solve tick runs eagerly behind
+a host ``if`` (JAX's scalar ``lax.cond``), so the solver kernels launch, and
+count, outside the graph.  On CPU inputs the same tick function runs
+eagerly on every tick.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 import torch
 
+from pympc_quadruped_tpu_torch.control import controller as ctrl
+from pympc_quadruped_tpu_torch.env import terrain as terrain_lib
+from pympc_quadruped_tpu_torch.estimation import kf
+from pympc_quadruped_tpu_torch.models.command import Command
+from pympc_quadruped_tpu_torch.models.gaits import GaitParams
 from pympc_quadruped_tpu_torch.models.mpc import MpcParams
 from pympc_quadruped_tpu_torch.models.robots import RobotParams
-from pympc_quadruped_tpu_torch.ops import kin, lie
+from pympc_quadruped_tpu_torch.ops import gaitsched, kin, lie
+from pympc_quadruped_tpu_torch.tree import tile, tree_map
 
 
 @dataclass
@@ -74,6 +89,96 @@ def observe(robot: RobotParams, state: SrbState) -> kin.RobotObs:
     )
 
 
+@dataclass
+class RawSensors:
+    """IMU + encoder feed (ref ``scripts/mujoco_aliengo.py:101-118``)."""
+
+    quat: torch.Tensor   # (4,) wxyz orientation (IMU fusion output)
+    gyro: torch.Tensor   # (3,) body-frame angular velocity
+    accel: torch.Tensor  # (3,) body-frame specific force (includes +g at rest)
+    q: torch.Tensor      # (12,) joint encoders
+    qdot: torch.Tensor   # (12,)
+
+
+@dataclass
+class SensorNoise:
+    """Standard deviations of the sensor noise (0-d tensors)."""
+
+    gyro: torch.Tensor
+    accel: torch.Tensor
+    encoder_q: torch.Tensor
+    encoder_qd: torch.Tensor
+
+    @staticmethod
+    def default(device="cuda") -> "SensorNoise":
+        f = lambda v: torch.tensor(v, dtype=torch.float32, device=device)
+        return SensorNoise(gyro=f(0.01), accel=f(0.05), encoder_q=f(0.001),
+                           encoder_qd=f(0.02))
+
+    @staticmethod
+    def zero(device="cuda") -> "SensorNoise":
+        f = lambda v: torch.tensor(v, dtype=torch.float32, device=device)
+        return SensorNoise(gyro=f(0.0), accel=f(0.0), encoder_q=f(0.0), encoder_qd=f(0.0))
+
+
+#: Standard-normal draws per scenario and tick: gyro 3, accel 3, q 12, qdot 12.
+NOISE_DRAWS = 30
+
+
+def _sensors_from_draws(robot, state, forces, eps, noise: SensorNoise) -> RawSensors:
+    """Noisy readings from standard-normal draws ``eps`` (...,30)."""
+    R = lie.quat_to_rotmat(state.quat)
+    lead = forces.shape[:-1]
+    f_sum = forces.reshape(lead + (4, 3)).sum(dim=-2) / robot.mass[..., None]
+    a_spec = (R.transpose(-1, -2) @ f_sum[..., None])[..., 0]
+    truth = observe(robot, state)
+    return RawSensors(
+        quat=state.quat,
+        gyro=state.omega_body + noise.gyro * eps[..., 0:3],
+        accel=a_spec + noise.accel * eps[..., 3:6],
+        q=truth.q + noise.encoder_q * eps[..., 6:18],
+        qdot=truth.qdot + noise.encoder_qd * eps[..., 18:30],
+    )
+
+
+def synthesize_sensors(
+    robot: RobotParams,
+    state: SrbState,
+    forces: torch.Tensor,   # (...,12) world GRFs applied over the last step
+    key: torch.Generator,
+    noise: SensorNoise,
+) -> RawSensors:
+    """Noisy IMU + encoder readings from the SRB state, with the noise drawn
+    from ``key`` (a generator on the state's device).
+
+    The accelerometer reports specific force R^T sum(F)/m: exactly +g on
+    the z axis at static stance."""
+    eps = torch.randn(forces.shape[:-1] + (NOISE_DRAWS,), generator=key,
+                      dtype=torch.float32, device=forces.device)
+    return _sensors_from_draws(robot, state, forces, eps, noise)
+
+
+def sensor_draws(seed: int, tick0: int, num_ticks: int, batch: int, device) -> torch.Tensor:
+    """(num_ticks, batch, 30) standard-normal draws of the rollout's sensor
+    noise: tick ``tick0 + i``'s draws come from a generator seeded by
+    (``seed``, absolute tick), so a chunked run resumes bitwise."""
+    out = torch.empty((num_ticks, batch, NOISE_DRAWS), dtype=torch.float32, device=device)
+    gen = torch.Generator(device=device)
+    for i in range(num_ticks):
+        gen.manual_seed(((int(seed) & 0xFFFFFFFF) << 32) | ((tick0 + i) & 0xFFFFFFFF))
+        torch.randn((batch, NOISE_DRAWS), generator=gen, out=out[i])
+    return out
+
+
+def init_state_on_terrain(robot: RobotParams, terrain: terrain_lib.Terrain) -> SrbState:
+    """Nominal stance with the feet settled on the local ground surface."""
+    s = default_init_state(robot)
+    gz = terrain_lib.height_at(terrain, s.foot_pos[..., :2])
+    feet = torch.cat([s.foot_pos[..., :2], gz[..., None]], dim=-1)
+    pos = torch.cat([s.pos[..., :2], s.pos[..., 2:] + gz.mean(dim=-1, keepdim=True)], dim=-1)
+    return dataclasses.replace(s, pos=pos, foot_pos=feet)
+
+
 def physics_step(
     robot: RobotParams,
     mpc: MpcParams,
@@ -81,12 +186,11 @@ def physics_step(
     forces: torch.Tensor,          # (...,12) world GRFs (stance legs)
     swing_states: torch.Tensor,    # (...,4)
     swing_pos_world: torch.Tensor, # (...,4,3) desired world swing-foot positions
-    terrain=None,
+    terrain: terrain_lib.Terrain | None = None,
 ) -> SrbState:
-    """Semi-implicit Euler at dt_control on flat ground; swing feet follow
-    their targets and never go below z = 0."""
-    if terrain is not None:
-        raise NotImplementedError("terrain is not ported yet (ROADMAP Queue 1, item 7)")
+    """Semi-implicit Euler at dt_control; swing feet follow their targets
+    and never go below the ground: z = 0, or the terrain's surface, where a
+    foot that strikes a riser early touches down and is pinned there."""
     dt = mpc.dt_control
     lead = forces.shape[:-1]
     f = forces.reshape(lead + (4, 3))
@@ -94,8 +198,8 @@ def physics_step(
     f = torch.where(stance, f, torch.zeros_like(f))
 
     total_f = f.sum(dim=-2)
-    e_z = torch.tensor([0.0, 0.0, 1.0], dtype=f.dtype, device=f.device)
-    acc = total_f / robot.mass[..., None] - e_z * mpc.gravity
+    acc = total_f / robot.mass[..., None]
+    acc = torch.cat([acc[..., :2], acc[..., 2:] - mpc.gravity], dim=-1)
 
     R = lie.quat_to_rotmat(state.quat)
     RT = R.transpose(-1, -2)
@@ -114,7 +218,11 @@ def physics_step(
     pos = state.pos + dt * vel
     quat = lie.quat_integrate(state.quat, omega_body, dt)
 
-    swing_z = torch.clamp(swing_pos_world[..., 2:], min=0.0)
+    if terrain is not None:
+        ground = terrain_lib.height_at(terrain, swing_pos_world[..., :2])
+        swing_z = torch.maximum(swing_pos_world[..., 2], ground)[..., None]
+    else:
+        swing_z = torch.clamp(swing_pos_world[..., 2:], min=0.0)
     swing_pos_world = torch.cat([swing_pos_world[..., :2], swing_z], dim=-1)
     new_feet = torch.where(stance, state.foot_pos, swing_pos_world)
     new_foot_vel = torch.where(
@@ -139,3 +247,257 @@ def _diverged(state: SrbState) -> torch.Tensor:
         torch.linalg.vector_norm(state.vel, dim=-1) < 10.0
     )
     return ~(finite & plausible)
+
+
+def init_full_carry(
+    robot: RobotParams,
+    mpc: MpcParams,
+    init_state: SrbState,
+    estimator: kf.KfParams | None = None,
+):
+    """The rollout's full loop carry at tick 0.
+
+    Truth mode: the batched controller carry.  Estimator mode: the tuple
+    ``(controller_carry, kf_state, held_forces)``; the held forces seed the
+    synthesized accelerometer with standstill gravity support.  Chunked runs
+    pass it as ``carry_in`` to resume bitwise."""
+    B = robot.mass.shape[0]
+    carry0 = tile(ctrl.init_carry(mpc.horizon, device=robot.mass.device), B)
+    if estimator is None:
+        return carry0
+    kf0 = kf.KfState.init(init_state.pos, init_state.foot_pos)
+    w0 = robot.mass * mpc.gravity / 4.0
+    forces0 = torch.zeros((B, 4, 3), dtype=torch.float32, device=robot.mass.device)
+    forces0[:, :, 2] = w0[:, None]
+    return (carry0, kf0, forces0.reshape(B, 12))
+
+
+def _copy_into(dst, src):
+    """Write every tensor leaf of ``src`` into the matching leaf of ``dst``."""
+    tree_map(lambda d, s: d.copy_(s), dst, src)
+
+
+@dataclass
+class _Buffers:
+    """The loop's static tensors: the env state, the full carry, the absolute
+    tick on the device and the (num_ticks, B) metric rows."""
+
+    state: SrbState
+    carry: object
+    tick: torch.Tensor
+    metrics: dict
+
+
+class RolloutLoop:
+    """One :func:`rollout` call's loop: its buffers, the tick function and,
+    on a CUDA device, the captured non-solve tick.
+
+    :meth:`step` advances one tick: a solve tick (host gate) runs eagerly,
+    any other tick replays the graph (or runs eagerly on the CPU).  The
+    arguments are :func:`rollout`'s; ``num_ticks`` sizes the metric rows
+    and bounds the ticks a loop can take."""
+
+    def __init__(self, robot, mpc, gait, cmd, num_ticks, init_state=None,
+                 solver=ctrl.DEFAULT_SOLVER, terrain=None, auto_reset=True, estimator=None,
+                 sensor_noise=None, key=None, carry_in=None, tick0=0, cmd_ramp_ticks=None,
+                 contact_source="plan", solver_cfg=None):
+        ctrl.check_solver(solver)
+        if contact_source not in ("plan", "measured"):
+            raise ValueError(f"unknown contact_source {contact_source!r}")
+        dev = robot.mass.device
+        B = robot.mass.shape[0]
+        if init_state is None:
+            init_state = (init_state_on_terrain(robot, terrain) if terrain is not None
+                          else default_init_state(robot))
+        self.use_kf = estimator is not None
+        if self.use_kf:
+            sensor_noise = SensorNoise.default(dev) if sensor_noise is None else sensor_noise
+            key = 0 if key is None else key
+        self.robot, self.mpc, self.gait, self.cmd = robot, mpc, gait, cmd
+        self.solver, self.solver_cfg = solver, dict(solver_cfg or {})
+        self.terrain, self.auto_reset = terrain, auto_reset
+        self.estimator, self.sensor_noise = estimator, sensor_noise
+        self.cmd_ramp_ticks, self.contact_source = cmd_ramp_ticks, contact_source
+        self.tick0, self.num_ticks, self.next_tick = int(tick0), int(num_ticks), int(tick0)
+
+        self.init_state = init_state
+        self.carry0 = init_full_carry(robot, mpc, init_state, estimator)
+        start = self.carry0 if carry_in is None else carry_in
+        self.draws = (sensor_draws(key, self.tick0, self.num_ticks, B, dev)
+                      if self.use_kf else None)
+        keys = ["vel_err", "height", "upright", "diverged"]
+        if self.use_kf:
+            keys += ["est_pos_err", "est_vel_err"]
+            if contact_source == "measured":
+                keys.append("contact_mismatch")
+        self.buf = _Buffers(
+            state=tree_map(torch.clone, init_state),
+            carry=tree_map(torch.clone, start),
+            tick=torch.tensor(self.tick0, dtype=torch.int32, device=dev),
+            metrics={k: torch.zeros((self.num_ticks, B), device=dev,
+                                    dtype=torch.bool if k == "diverged" else torch.float32)
+                     for k in keys},
+        )
+        self.graph = self._capture() if dev.type == "cuda" else None
+
+    def _compute(self, state, carry, tick, solve: bool):
+        """One closed-loop tick from (state, carry) at the device tick
+        ``tick``: returns (state', carry', metric row)."""
+        robot, mpc, gait = self.robot, self.mpc, self.gait
+        B = robot.mass.shape[0]
+        if self.use_kf:
+            c_carry, kf_state, held_forces = carry
+            idx = (tick - self.tick0).long().reshape(1)
+            eps = self.draws.index_select(0, idx)[0]
+            sensors = _sensors_from_draws(robot, state, held_forces, eps, self.sensor_noise)
+            plan_contact = (gaitsched.swing_state(gait, mpc, tick) == 0.0).float()
+            if self.contact_source == "measured":
+                # A touch sensor fires on the held GRF of a pinned foot: it
+                # lags the plan at every stance onset.
+                held_fz = held_forces.reshape(B, 4, 3)[:, :, 2]
+                contact = plan_contact * (held_fz > 1.0).float()
+            else:
+                contact = plan_contact
+            kf_state = kf.update(kf_state, robot, sensors.gyro, sensors.accel, sensors.q,
+                                 sensors.qdot, contact, self.estimator)
+            obs = kf.to_obs(kf_state, sensors.gyro, sensors.q, sensors.qdot)
+        else:
+            c_carry = carry
+            obs = observe(robot, state)
+        cmd = (self.cmd if self.cmd_ramp_ticks is None
+               else self.cmd.ramped(tick, self.cmd_ramp_ticks))
+        c_carry, out = ctrl.step_gated(robot, mpc, gait, cmd, c_carry, obs, tick, solve,
+                                       self.solver, **self.solver_cfg)
+        # World-frame swing-foot targets, as loop.run_ticks forms them.
+        swing_pos_world = state.pos[:, None, :] + (
+            out.kin.R_base[:, None] @ out.pos_targets[..., None]
+        )[..., 0]
+        state = physics_step(robot, mpc, state, out.contact_forces, out.swing_states,
+                             swing_pos_world, self.terrain)
+
+        bad = _diverged(state)
+        new_carry = (c_carry, kf_state, out.contact_forces) if self.use_kf else c_carry
+        if self.auto_reset:
+            pick = lambda a, b: tree_map(
+                lambda x, y: torch.where(bad.reshape((B,) + (1,) * (x.dim() - 1)), x, y), a, b)
+            state = pick(self.init_state, state)
+            new_carry = pick(self.carry0, new_carry)
+
+        vel_des_world = (out.kin.R_base @ cmd.vel_base_des[..., None])[..., 0]
+        row = {
+            "vel_err": torch.linalg.vector_norm(state.vel - vel_des_world, dim=-1),
+            "height": state.pos[:, 2],
+            "upright": out.kin.R_base[:, 2, 2],
+            "diverged": bad,
+        }
+        if self.use_kf:
+            est = new_carry[1]
+            row["est_pos_err"] = torch.linalg.vector_norm(est.x[:, 0:3] - state.pos, dim=-1)
+            row["est_vel_err"] = torch.linalg.vector_norm(est.x[:, 3:6] - state.vel, dim=-1)
+            if self.contact_source == "measured":
+                row["contact_mismatch"] = (contact - plan_contact).abs().mean(dim=-1)
+        return state, new_carry, row
+
+    def _tick(self, buf: _Buffers, solve: bool) -> None:
+        """One tick on ``buf``: every output written back into its static
+        input, each metric stored at the tick's row, the device tick advanced."""
+        state, carry, row = self._compute(buf.state, buf.carry, buf.tick, solve)
+        idx = (buf.tick - self.tick0).long().reshape(1)
+        for k, v in row.items():
+            buf.metrics[k].index_copy_(0, idx, v[None])
+        _copy_into(buf.state, state)
+        _copy_into(buf.carry, carry)
+        buf.tick.add_(1)
+
+    def _capture(self) -> torch.cuda.CUDAGraph:
+        """Capture the non-solve tick over ``self.buf``, after a warm-up on a
+        side stream over copies of the buffers (which leaves them as they
+        were).  A capture failure raises."""
+        scratch = tree_map(torch.clone, self.buf)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(2):
+                self._tick(scratch, solve=False)
+        torch.cuda.current_stream().wait_stream(side)
+        # keep_graph: the captured cudaGraph_t stays readable
+        # (``raw_cuda_graph()``, e.g. to count its nodes) beside its executable.
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        with torch.cuda.graph(graph):
+            self._tick(self.buf, solve=False)
+        graph.instantiate()
+        return graph
+
+    def step(self) -> None:
+        """Advance one tick: the solve tick eagerly, any other by replay."""
+        if self.next_tick >= self.tick0 + self.num_ticks:
+            raise IndexError(f"the loop was sized for {self.num_ticks} ticks")
+        if ctrl.is_solve_tick(self.mpc, self.next_tick):
+            self._tick(self.buf, solve=True)
+        elif self.graph is not None:
+            self.graph.replay()
+        else:
+            self._tick(self.buf, solve=False)
+        self.next_tick += 1
+
+    def result(self, return_full_carry: bool = False):
+        """``((env_state, carry), metrics)`` as :func:`rollout` returns them."""
+        carry = self.buf.carry
+        if self.use_kf and not return_full_carry:
+            carry = carry[0]
+        return (self.buf.state, carry), self.buf.metrics
+
+
+def rollout(
+    robot: RobotParams,
+    mpc: MpcParams,
+    gait: GaitParams,
+    cmd: Command,
+    num_ticks: int,
+    init_state: SrbState | None = None,
+    solver: str = ctrl.DEFAULT_SOLVER,
+    terrain: terrain_lib.Terrain | None = None,
+    auto_reset: bool = True,
+    estimator: kf.KfParams | None = None,
+    sensor_noise: SensorNoise | None = None,
+    key: int | None = None,
+    carry_in=None,
+    tick0: int = 0,
+    return_full_carry: bool = False,
+    cmd_ramp_ticks: int | None = None,
+    contact_source: str = "plan",
+    solver_cfg: dict | None = None,
+):
+    """Closed-loop batched rollout of ``num_ticks`` ticks.
+
+    Every argument except ``mpc`` carries a leading scenario axis (``robot``,
+    ``gait``, ``cmd`` and an optional per-scenario ``terrain`` are
+    randomization axes).  Returns ``((env_state, controller_carry),
+    metrics)``, metrics a dict of (num_ticks, B) tensors: ``vel_err``,
+    ``height``, ``upright`` and ``diverged``.  With ``auto_reset`` a
+    diverged scenario snaps back to its initial state and carry.
+
+    ``estimator`` (``kf.KfParams``) drives the controller with the Kalman
+    filter on noisy synthesized sensors (``sensor_noise``, default
+    ``SensorNoise.default()``) instead of ground truth, and adds
+    ``est_pos_err`` and ``est_vel_err``.  ``key`` is an int seed: the noise
+    of each tick is drawn from (seed, absolute tick).  ``contact_source``
+    gates the filter's leg odometry on the planned stance (``"plan"``) or on
+    a touch signal from the held GRFs (``"measured"``, adding
+    ``contact_mismatch``).
+
+    Chunked runs resume bitwise: pass the previous chunk's env state as
+    ``init_state``, its full carry (``return_full_carry=True``, the
+    :func:`init_full_carry` structure) as ``carry_in`` and the absolute
+    starting tick as ``tick0``.  ``cmd_ramp_ticks`` ramps the command in
+    from standstill (:meth:`Command.ramped`); ``solver_cfg`` is a dict of
+    ``admm_fast_cfg`` / ``riccati_cfg`` for :func:`controller.step_gated`.
+
+    On a CUDA device the non-solve ticks replay one captured CUDA graph
+    (:class:`RolloutLoop`); a capture or replay failure raises."""
+    loop = RolloutLoop(robot, mpc, gait, cmd, num_ticks, init_state, solver, terrain,
+                       auto_reset, estimator, sensor_noise, key, carry_in, tick0,
+                       cmd_ramp_ticks, contact_source, solver_cfg)
+    for _ in range(num_ticks):
+        loop.step()
+    return loop.result(return_full_carry)

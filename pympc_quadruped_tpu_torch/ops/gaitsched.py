@@ -1,7 +1,9 @@
 """Pure gait phase machinery (port of ``ops/gaitsched.py``).
 
 Every quantity is a function of ``(tick, GaitParams, MpcParams)``; the gait
-may carry leading scenario axes, ``tick`` is the shared Python-int tick.
+may carry leading scenario axes.  ``tick`` is the shared tick: a Python int,
+or a 0-d integer tensor on the gait's device (the device tick that a
+captured CUDA graph of the rollout tick reads), with the same results.
 Semantics as in the JAX module (ref ``linear_mpc/gait.py:76-150``):
 
 - ``iteration = floor(tick / iters) mod num_segments`` and
@@ -20,8 +22,10 @@ from pympc_quadruped_tpu_torch.models.gaits import GaitParams
 from pympc_quadruped_tpu_torch.models.mpc import MpcParams
 
 
-def phase_of_tick(gait: GaitParams, mpc: MpcParams, tick: int):
-    """Returns (iteration, phase): int32 segment index and cycle phase in [0,1)."""
+def phase_of_tick(gait: GaitParams, mpc: MpcParams, tick):
+    """Returns (iteration, phase): int32 segment index and cycle phase in [0,1).
+    ``//`` and ``torch.remainder`` floor on a Python int and on a tensor
+    alike, as JAX's ``//`` and ``%`` do."""
     iters = mpc.iterations_between_mpc
     iteration = torch.remainder(tick // iters, gait.num_segments)
     period = iters * gait.num_segments
@@ -29,7 +33,7 @@ def phase_of_tick(gait: GaitParams, mpc: MpcParams, tick: int):
     return iteration, phase
 
 
-def gait_table(gait: GaitParams, mpc: MpcParams, tick: int) -> torch.Tensor:
+def gait_table(gait: GaitParams, mpc: MpcParams, tick) -> torch.Tensor:
     """(..., horizon*4) stance table, 1 stance / 0 swing, row-major over
     (horizon step, leg)."""
     iteration, _ = phase_of_tick(gait, mpc, tick)
@@ -58,7 +62,7 @@ def _normalized_windows(gait: GaitParams):
             gait.stance_durations.float() / num)
 
 
-def swing_state(gait: GaitParams, mpc: MpcParams, tick: int) -> torch.Tensor:
+def swing_state(gait: GaitParams, mpc: MpcParams, tick) -> torch.Tensor:
     """(...,4) normalized swing phase per leg: 0 = not swinging, (0,1] = progress."""
     _, phase = phase_of_tick(gait, mpc, tick)
     offsets_n, durations_n = _normalized_windows(gait)
@@ -67,7 +71,7 @@ def swing_state(gait: GaitParams, mpc: MpcParams, tick: int) -> torch.Tensor:
     return _window_state(phase[..., None], swing_offsets, 1.0 - durations_n)
 
 
-def stance_state(gait: GaitParams, mpc: MpcParams, tick: int) -> torch.Tensor:
+def stance_state(gait: GaitParams, mpc: MpcParams, tick) -> torch.Tensor:
     """(...,4) normalized stance phase per leg: 0 = not in stance."""
     _, phase = phase_of_tick(gait, mpc, tick)
     offsets_n, durations_n = _normalized_windows(gait)

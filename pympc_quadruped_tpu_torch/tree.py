@@ -1,7 +1,8 @@
 """Maps over the port's parameter/state dataclasses (the pytree counterpart).
 
-A "tree" here is a dataclass whose fields are tensors, nested dataclasses,
-or static Python values (ints/bools such as ``MpcParams.horizon``), which
+A "tree" here is a tensor, a tuple of trees, or a dataclass whose fields
+are tensors, nested dataclasses or tuples, dicts of tensors, or static
+Python values (ints/bools such as ``MpcParams.horizon``), which
 pass through unchanged.
 """
 from __future__ import annotations
@@ -20,6 +21,10 @@ def tree_map(fn, obj, *rest):
                              *(getattr(r, f.name) for r in rest))
             for f in dataclasses.fields(obj)
         })
+    if isinstance(obj, tuple):
+        return tuple(tree_map(fn, o, *(r[i] for r in rest)) for i, o in enumerate(obj))
+    if isinstance(obj, dict):
+        return {k: tree_map(fn, o, *(r[k] for r in rest)) for k, o in obj.items()}
     if isinstance(obj, torch.Tensor):
         return fn(obj, *rest)
     return obj

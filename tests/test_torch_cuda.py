@@ -14,7 +14,12 @@ import torch
 
 from chip_smoke import (INV_RATIO_BAR, closed_loop_setup, condensed_problem, invariants_ok,
                         inverse_residual, qp_invariants, random_problem)
+from pympc_quadruped_tpu_torch import tree
+from pympc_quadruped_tpu_torch.control import controller as ctrl
+from pympc_quadruped_tpu_torch.env import srb_env
+from pympc_quadruped_tpu_torch.estimation import kf
 from pympc_quadruped_tpu_torch.loop import run_ticks
+from pympc_quadruped_tpu_torch.models import Command, Gaits, a1, default_mpc_params
 from pympc_quadruped_tpu_torch.ops.qp import admm_cuda, admm_fast, riccati, riccati_cuda
 
 
@@ -115,3 +120,70 @@ def test_cuda_condensed_kernels_match_plain(cuda_device, B, h):
             assert bool(torch.isfinite(U_k).all()), backend
             inv = qp_invariants(p, U_k, U_p)
             assert invariants_ok(inv, float(p.robot.fz_max.max())), (backend, inv)
+
+
+def _assert_bitwise(a, b):
+    tree.tree_map(lambda x, y: torch.testing.assert_close(x, y, rtol=0, atol=0), a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["riccati", "admm_fast"])
+def test_cuda_graph_rollout_equals_eager_run_ticks(cuda_device, solver):
+    """60 ticks at B=33: ``rollout`` (non-solve ticks replayed from its
+    captured graph) bit for bit the eager ``loop.run_ticks``, with the
+    solver's kernels launched once per solve tick, by the eager solve
+    ticks only."""
+    mpc, robot, gait, cmd, carry, state = closed_loop_setup(cuda_device, B=33)
+    carry_e, state_e, _ = run_ticks(robot, mpc, gait, cmd, carry, state, 0, 60, solver)
+    before = {"riccati_admm": riccati_cuda.LAUNCHES, **admm_cuda.LAUNCHES}
+    (state_g, carry_g), metrics = srb_env.rollout(robot, mpc, gait, cmd, 60,
+                                                  init_state=state, solver=solver)
+    torch.cuda.synchronize()
+    after = {"riccati_admm": riccati_cuda.LAUNCHES, **admm_cuda.LAUNCHES}
+    on_path = ("riccati_admm",) if solver == "riccati" else ("invert_spd", "iterate")
+    assert {k: after[k] - before[k] for k in after} == {k: 3 * (k in on_path) for k in after}
+    _assert_bitwise((state_g, carry_g), (state_e, carry_e))
+    assert not bool(metrics["diverged"].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["truth", "estimator"])
+def test_cuda_chunked_rollout_equals_monolithic(cuda_device, mode):
+    """2 x 50 ticks (tick0, carry_in, return_full_carry) == 100 ticks on the
+    card, bit for bit, noise included."""
+    mpc, robot, gait, cmd, _, state = closed_loop_setup(cuda_device, B=33)
+    kw = dict(solver="riccati", init_state=state, return_full_carry=True, cmd_ramp_ticks=30)
+    if mode == "estimator":
+        kw.update(estimator=kf.KfParams.default(device=cuda_device), key=7)
+    (s_m, c_m), m_m = srb_env.rollout(robot, mpc, gait, cmd, 100, **kw)
+    (s_1, c_1), m_1 = srb_env.rollout(robot, mpc, gait, cmd, 50, **kw)
+    kw["init_state"] = s_1
+    (s_2, c_2), m_2 = srb_env.rollout(robot, mpc, gait, cmd, 50, carry_in=c_1, tick0=50, **kw)
+    _assert_bitwise((s_m, c_m), (s_2, c_2))
+    for k in m_m:
+        _assert_bitwise(m_m[k], torch.cat([m_1[k], m_2[k]]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("contact_source", ["plan", "measured"])
+def test_cuda_estimator_rollout_graph_equals_eager(cuda_device, contact_source):
+    """The estimator mode with sensor noise (A1, h=10, TROTTING10, 0.8 m/s,
+    command ramp), 60 ticks at B=33: the replayed rollout against the same
+    loop's tick function run eagerly on every tick, bit for bit."""
+    B = 33
+    mpc = default_mpc_params(10, device=cuda_device)
+    robot = tree.tile(a1(device=cuda_device), B)
+    gait = tree.tile(Gaits.trotting10(device=cuda_device), B)
+    cmd = tree.tile(Command.trot_forward(0.8, device=cuda_device), B)
+    kw = dict(estimator=kf.KfParams.default(device=cuda_device),
+              sensor_noise=srb_env.SensorNoise.default(cuda_device), key=3,
+              cmd_ramp_ticks=300, contact_source=contact_source)
+    (s_g, c_g), m_g = srb_env.rollout(robot, mpc, gait, cmd, 60, return_full_carry=True, **kw)
+    eager = srb_env.RolloutLoop(robot, mpc, gait, cmd, 60, **kw)
+    for tick in range(60):
+        eager._tick(eager.buf, solve=ctrl.is_solve_tick(mpc, tick))
+    (s_e, c_e), m_e = eager.result(return_full_carry=True)
+    _assert_bitwise((s_g, c_g), (s_e, c_e))
+    for k in m_g:
+        _assert_bitwise(m_g[k], m_e[k])
+    assert float(m_g["est_pos_err"].max()) > 0.0
