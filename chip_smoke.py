@@ -22,7 +22,8 @@ result):
    ``solve_batch`` (setup and layout included), and one full 20-tick
    control period;
 5. condensed kernels vs plain: on random condensed problems made by the
-   port's ``build_qp`` at h=16, B=4096 and B=130, cold and warm-started:
+   port's ``build_qp`` at h=16 (B=4096 and B=130) and at phase 11b's h=10
+   (B=4096), cold and warm-started:
    the invert kernel's f64 residual max|Kinv K - I| within 2x of the plain
    ``spd_inverse``'s, and the ``pallas``, ``pallas_split``,
    ``pallas_fused`` and ``pallas_full`` backends against ``jnp`` with the
@@ -68,7 +69,23 @@ result):
 10. ``sweep.gait_sweep`` at B=4096 over trotting10 / pacing10 / bounding8,
    h=10, 3000 ticks, held to tests/test_gait_sweep.py:34-48: survival 1.0,
    tail velocity error below 0.3 m/s, forward displacement above 60% of
-   the command's.
+   the command's;
+11. ``fullorder.rollout``, the torque-driven full-order environment (CRBA,
+   RNEA, penalty contact, an 18x18 Cholesky a step), its non-solve ticks
+   replayed from one captured CUDA graph: 11a Aliengo, h=16, TROTTING16 at
+   1.0 m/s, ``riccati``; 11b Aliengo, h=10, TROTTING10 at 1.2 m/s, the
+   default ``admm_fast`` (bench.py:757's configuration); both at B=4096
+   scenarios jittered as tests/test_rbd.py:35-65 does, 1500 ticks.  The
+   first 100 ticks must equal the same tick run eagerly bit for bit, each
+   solver kernel must launch once per solve tick (75), and the in-band
+   share (tests/test_h16_config.py:99-126, tests/test_rbd.py:400-425) must
+   reach min(0.99, the JAX package's share on the same scenarios - 0.01);
+   then the period, the eager solve tick, one replayed tick, the graph's
+   nodes and ticks/s.  11c, every other captured branch at B=1024: the
+   Kalman filter on noisy sensors with measured contact, 2 cm rough
+   terrain, ``substeps=2``, ``auto_reset`` and a 400-tick command ramp:
+   graph against eager bit for bit, then 1500 ticks finite with no
+   scenario diverged.
 
 The last two lines are the kernel summary and the device record.  Imports
 torch, numpy and the port only.
@@ -89,7 +106,7 @@ import torch
 from pympc_quadruped_tpu_torch import _build, tree
 from pympc_quadruped_tpu_torch.control import controller as ctrl
 from pympc_quadruped_tpu_torch.control import refmpc
-from pympc_quadruped_tpu_torch.env import srb_env
+from pympc_quadruped_tpu_torch.env import fullorder, srb_env, terrain
 from pympc_quadruped_tpu_torch.estimation import kf
 from pympc_quadruped_tpu_torch.loop import run_ticks
 from pympc_quadruped_tpu_torch.models import Command, Gaits, a1, aliengo, default_mpc_params
@@ -484,19 +501,21 @@ def phase_condensed_vs_plain(dev):
     worst = {"invert_spd": 0.0, "iterate": 0.0, "iterate_fused": 0.0, "solve_full": 0.0}
     backend_kernel = {"pallas": "iterate", "pallas_split": "iterate",
                       "pallas_fused": "iterate_fused", "pallas_full": "solve_full"}
-    for B in (B_MAIN, B_RAGGED):
-        p = condensed_problem(B, 11, dev)
+    # h=16 is the condensed and SRB loops' horizon; h=10 (n=120, whose Schur
+    # recursion splits 120 -> 60 -> 30 -> 15) is phase 11b's.
+    for h, B in ((HORIZON, B_MAIN), (HORIZON, B_RAGGED), (10, B_MAIN)):
+        p = condensed_problem(B, 11, dev, h=h)
         args = (p.H, p.g, p.table, p.robot.fz_max, p.mpc)
         K = admm_fast.setup(*args, admm_fast.AdmmFastConfig(), invert=False).K
         Kinv_k = admm_cuda.invert_spd(K)
         torch.cuda.synchronize()
-        check(bool(torch.isfinite(Kinv_k).all()), f"B={B}: non-finite invert_spd output")
+        check(bool(torch.isfinite(Kinv_k).all()), f"h={h} B={B}: non-finite invert_spd output")
         r_k = float(inverse_residual(Kinv_k, K).max())
         r_p = float(inverse_residual(admm_fast.spd_inverse(K), K).max())
         worst["invert_spd"] = max(worst["invert_spd"], r_k / r_p)
-        print(f"phase 5: B={B} invert_spd: f64 max|Kinv K - I| kernel {r_k:.3e}, plain "
+        print(f"phase 5: h={h} B={B} invert_spd: f64 max|Kinv K - I| kernel {r_k:.3e}, plain "
               f"{r_p:.3e} (ratio {r_k / r_p:.3f}, bar {INV_RATIO_BAR})", flush=True)
-        check(r_k <= INV_RATIO_BAR * r_p, f"B={B}: invert_spd residual above the bar")
+        check(r_k <= INV_RATIO_BAR * r_p, f"h={h} B={B}: invert_spd residual above the bar")
         for case, w, cfg in (("cold", None, admm_fast.AdmmFastConfig()),
                              ("warm", p.warm, admm_fast.AdmmFastConfig.inloop())):
             U_p = admm_fast.solve_batch(*args, cfg, backend="jnp", warm=w)
@@ -505,11 +524,12 @@ def phase_condensed_vs_plain(dev):
             for backend, kernel in backend_kernel.items():
                 U_k = admm_fast.solve_batch(*args, cfg, backend=backend, warm=w)
                 torch.cuda.synchronize()
-                check(bool(torch.isfinite(U_k).all()), f"B={B} {backend}: non-finite output")
+                check(bool(torch.isfinite(U_k).all()),
+                      f"h={h} B={B} {backend}: non-finite output")
                 inv = qp_invariants(p, U_k, U_p)
                 pm = {k: p99_max(v) for k, v in inv.items()}
                 worst[kernel] = max(worst[kernel], pm["excess"][1])
-                print(f"phase 5: B={B} {case} {backend} (p99 / max): cost excess "
+                print(f"phase 5: h={h} B={B} {case} {backend} (p99 / max): cost excess "
                       f"{pm['excess'][0]:.3e} / {pm['excess'][1]:.3e} (bar {COST_BAR}), cone "
                       f"violation {pm['cone'][0]:.3e} / {pm['cone'][1]:.3e} N (bar "
                       f"{CONE_SHARE * fz_max:g}; plain {cone_p[0]:.3e} / {cone_p[1]:.3e}), "
@@ -519,7 +539,7 @@ def phase_condensed_vs_plain(dev):
                       f"{pm['cost'][1]:.3e}, first-step fz rel {pm['fz'][0]:.3e} / "
                       f"{pm['fz'][1]:.3e}", flush=True)
                 check(invariants_ok(inv, fz_max),
-                      f"B={B} {case} {backend}: kernel disagrees with the plain version")
+                      f"h={h} B={B} {case} {backend}: kernel disagrees with the plain version")
     return worst
 
 
@@ -819,6 +839,192 @@ def phase_gait_sweep(dev, card):
               and s["fwd_disp_m"] > 0.6 * expect, f"gait_sweep {name}: outside the bars")
 
 
+# ---------------------------------------------------------------------------
+# The full-order environment
+# ---------------------------------------------------------------------------
+
+FO_TICKS, FO_TAIL, FO_BITWISE_TICKS = 1500, 500, 100
+#: The JAX package's in-band share on the same 4096 scenarios, run on a CPU
+#: by tools/fullorder_reference_share.py; its output lines are kept in
+#: tools/fullorder_reference_share.jsonl (PERF.md section 6).  The port
+#: must reach min(BAND_SHARE, share - 0.01).
+FO_REFERENCE_SHARE = {"11a": 4072 / 4096, "11b": 3535 / 4096}
+#: Phase 11's trots (Aliengo): horizon, gait, command, solver, the seed of
+#: the jitter, and the band (height low and high, vel_err, upright, final
+#: x) over the last FO_TAIL ticks: tests/test_h16_config.py:99-126 for 11a,
+#: tests/test_rbd.py:400-425 (bench.py:757's configuration) for 11b.
+FO_PARTS = {
+    "11a": dict(horizon=16, gait="trotting16", vx=1.0, solver="riccati", seed=13,
+                band=(0.33, 0.42, 0.2, 0.9, 0.8)),
+    "11b": dict(horizon=10, gait="trotting10", vx=1.2, solver="admm_fast", seed=27,
+                band=(0.33, 0.42, 0.15, 0.9, 1.0)),
+}
+
+
+def fullorder_jitter(B: int, seed: int):
+    """tests/test_rbd.py:35-65's jitter of the nominal stance, made with
+    numpy: (dpos (B,3), dq (B,12), du (B,18)) float32, scenario 0 nominal,
+    +-1 cm base xy, +-3 mm base z, +-0.01 rad joints, +-0.02 on every
+    generalized velocity."""
+    rng = np.random.default_rng(seed)
+    dpos = np.zeros((B, 3), np.float32)
+    dpos[1:, :2] = rng.uniform(-0.01, 0.01, (B - 1, 2))
+    dpos[1:, 2] = rng.uniform(-0.003, 0.003, B - 1)
+    dq = np.zeros((B, 12), np.float32)
+    dq[1:] = rng.uniform(-0.01, 0.01, (B - 1, 12))
+    du = np.zeros((B, 18), np.float32)
+    du[1:] = rng.uniform(-0.02, 0.02, (B - 1, 18))
+    return dpos, dq, du
+
+
+def fullorder_in_band(metrics: dict, x: torch.Tensor, band) -> torch.Tensor:
+    """(B,) bool: finite height on every tick, and over the last FO_TAIL
+    ticks the mean height inside (lo, hi), the mean vel_err below its bar
+    and the least upright above its bar; the final base x above its bar."""
+    lo, hi, v_bar, up_bar, x_bar = band
+    height = metrics["height"]
+    h = height[-FO_TAIL:].mean(dim=0)
+    v = metrics["vel_err"][-FO_TAIL:].mean(dim=0)
+    up = metrics["upright"][-FO_TAIL:].amin(dim=0)
+    return (torch.isfinite(height).all(dim=0) & (h > lo) & (h < hi) & (v < v_bar)
+            & (up > up_bar) & (x > x_bar))
+
+
+FO_LAUNCHES_IN = {
+    "riccati": f"fullorder.rollout(solver='riccati'), h=16, {FO_TICKS} ticks, "
+               f"{FO_TICKS // PERIOD} solves (phase 11a)",
+    "admm_fast": f"fullorder.rollout(solver='admm_fast'), h=10, {FO_TICKS} ticks, "
+                 f"{FO_TICKS // PERIOD} solves (phase 11b)",
+}
+
+
+def fullorder_setup(dev, part: str, B: int):
+    """Phase 11a/11b's batch: Aliengo, the part's horizon, gait and command,
+    and the jittered nominal stance (the first ``B`` of B_MAIN draws)."""
+    p = FO_PARTS[part]
+    mpc = default_mpc_params(p["horizon"], device=dev)
+    robot = tree.tile(aliengo(device=dev), B)
+    gait = tree.tile(Gaits.by_name(p["gait"], device=dev), B)
+    cmd = tree.tile(Command.trot_forward(p["vx"], device=dev), B)
+    state = fullorder.default_init_state(robot)
+    dpos, dq, du = (torch.tensor(a[:B], device=dev) for a in fullorder_jitter(B_MAIN, p["seed"]))
+    state = dataclasses.replace(state, pos=state.pos + dpos, q=state.q + dq, u=state.u + du)
+    return mpc, robot, gait, cmd, state
+
+
+def fullorder_graph_and_eager(args, n_ticks, **kwargs):
+    """``fullorder.rollout`` over ``n_ticks`` (the non-solve ticks replayed
+    from its graph) and the same loop's tick run eagerly on every tick:
+    both ((state, full carry), metrics)."""
+    graph = fullorder.rollout(*args, n_ticks, return_full_carry=True, **kwargs)
+    eager = fullorder.RolloutLoop(*args, n_ticks, **kwargs)
+    for tick in range(eager.tick0, eager.tick0 + n_ticks):
+        eager._tick(eager.buf, solve=ctrl.is_solve_tick(args[1], tick))
+    return graph, eager.result(return_full_carry=True)
+
+
+def fullorder_graph_vs_eager(phase, args, kwargs):
+    """The first FO_BITWISE_TICKS ticks of the graph against the eager tick:
+    state, full carry and metrics bit for bit."""
+    ((s_g, c_g), m_g), ((s_e, c_e), m_e) = fullorder_graph_and_eager(
+        args, FO_BITWISE_TICKS, **kwargs)
+    torch.cuda.synchronize()
+    diffs = bitwise_report((s_g, c_g, tuple(m_g.values())), (s_e, c_e, tuple(m_e.values())))
+    print(f"phase {phase}: first {FO_BITWISE_TICKS} ticks replayed against the same tick run "
+          f"eagerly: " + ("bitwise equal" if not diffs else f"differ in {diffs}"), flush=True)
+    check(not diffs, f"phase {phase}: the graph's ticks differ from the eager ticks")
+
+
+def phase_fullorder_trot(dev, card, part: str):
+    """Phase 11a or 11b at B=4096: graph against eager, FO_TICKS ticks held
+    to the band and to one launch of each solver kernel per solve tick,
+    then the period, its eager solve tick and one replayed tick."""
+    p = FO_PARTS[part]
+    B, solver = B_MAIN, p["solver"]
+    mpc, robot, gait, cmd, state0 = fullorder_setup(dev, part, B)
+    args = (robot, mpc, gait, cmd)
+    fullorder_graph_vs_eager(part, args, dict(state0=state0, solver=solver))
+
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    (state, carry), m = fullorder.rollout(*args, FO_TICKS, state0=state0, solver=solver)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernel_launches()
+    n_solves = FO_TICKS // PERIOD
+    on_path = ("riccati_admm",) if solver == "riccati" else ("invert_spd", "iterate")
+    for name, count in launches.items():
+        check(count == (n_solves if name in on_path else 0),
+              f"phase {part}: kernel {name} launched {count} times, expected "
+              f"{n_solves if name in on_path else 0}")
+    check(all(tuple(v.shape) == (FO_TICKS, B) for v in m.values()), "fullorder metric shapes")
+    ok = fullorder_in_band(m, state.pos[:, 0], p["band"])
+    share = float(ok.float().mean())
+    bar = min(BAND_SHARE, FO_REFERENCE_SHARE[part] - 0.01)
+    counts = ", ".join(f"{k} {launches[k]}" for k in on_path)
+    print(f"phase {part}: fullorder.rollout Aliengo h={p['horizon']} {p['gait']} {p['vx']} m/s "
+          f"solver={solver} B={B}, {FO_TICKS} ticks in {wall:.1f} s (capture included): "
+          f"{int(ok.sum())}/{B} in band ({share:.4f}; bar {bar:.4f} = min({BAND_SHARE}, JAX "
+          f"{FO_REFERENCE_SHARE[part]:.4f} - 0.01)); kernel launches {counts}; diverged "
+          f"{int(m['diverged'].any(dim=0).sum())}; median final x "
+          f"{float(state.pos[:, 0].median()):.3f} m", flush=True)
+    check(share >= bar, f"phase {part}: only {share:.4f} of scenarios in the band")
+
+    t0 = time.perf_counter()
+    loop = fullorder.RolloutLoop(*args, PERIOD * 12, state0=state, carry0=carry, solver=solver,
+                                 tick0=FO_TICKS)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    nodes = graph_nodes(loop.graph)
+    for _ in range(2 * PERIOD):
+        loop.step()
+    period, solve_tick, replay_tick = time_rollout_periods(loop)
+    print(f"phase {part}: fullorder solver={solver} B={B}: one {PERIOD}-tick period "
+          f"{period:.3f} ms ({B * PERIOD / period * 1e3:.0f} ticks/s) against the 20 ms "
+          f"real-time limit; eager solve tick {solve_tick:.3f} ms, replayed non-solve tick "
+          f"{replay_tick:.3f} ms; graph of the non-solve tick: {nodes} nodes, captured in "
+          f"{capture_s:.2f} s (setup included) [{card}]", flush=True)
+    return launches, dict(period_ms=period, solve_tick_ms=solve_tick, replay_tick_ms=replay_tick,
+                          ticks_per_s=B * PERIOD / period * 1e3, graph_nodes=nodes,
+                          in_band=share, bar=bar, wall_s=wall)
+
+
+def phase_fullorder_branches(dev, card):
+    """Phase 11c: every other captured branch at B=1024: the Kalman filter
+    on noisy sensors with measured contact, rough terrain, two physics
+    substeps, auto-reset and a command ramp; graph against eager, then
+    FO_TICKS ticks that stay finite with no scenario diverging."""
+    B = 1024
+    mpc = default_mpc_params(10, device=dev)
+    robot = tree.tile(aliengo(device=dev), B)
+    gait = tree.tile(Gaits.trotting10(device=dev), B)
+    cmd = tree.tile(Command.trot_forward(0.8, device=dev), B)
+    terr = tree.tile(terrain.random_rough(torch.Generator(device=dev).manual_seed(11),
+                                          amplitude=0.02, device=dev), B)
+    est = dataclasses.replace(kf.KfParams.default(device=dev),
+                              contact_height=torch.tensor(0.0255, device=dev))
+    kwargs = dict(terrain=terr, estimator=est, sensor_noise=srb_env.SensorNoise.default(dev),
+                  key=5, substeps=2, auto_reset=True, cmd_ramp_ticks=400)
+    args = (robot, mpc, gait, cmd)
+    fullorder_graph_vs_eager("11c", args, kwargs)
+    t0 = time.perf_counter()
+    (state, _), m = fullorder.rollout(*args, FO_TICKS, **kwargs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    finite = all(bool(torch.isfinite(t).all()) for t in (state.pos, state.quat, state.u, state.q))
+    n_div = int(m["diverged"].any(dim=0).sum())
+    up = float(m["upright"][-FO_TAIL:].amin())
+    ev = float(m["est_vel_err"][-FO_TAIL:].mean())
+    print(f"phase 11c: fullorder.rollout Aliengo h=10 trotting10 0.8 m/s, KF on default sensor "
+          f"noise with measured contact, 2 cm rough terrain, substeps=2, auto_reset, ramp 400, "
+          f"B={B}, {FO_TICKS} ticks in {wall:.1f} s (capture included): finite {finite}, "
+          f"{n_div} scenarios diverged (bar 0); least upright over the last {FO_TAIL} ticks "
+          f"{up:.3f}, mean est_vel_err {ev:.4f} m/s [{card}]", flush=True)
+    check(finite and n_div == 0, "phase 11c: a scenario diverged or went non-finite")
+    return dict(wall_s=wall, diverged=n_div)
+
+
 def entry_report(log: str, kernel: str) -> str:
     """ptxas's register and spill lines for one kernel's entry function,
     and the largest spill store of any function in the library (the
@@ -891,6 +1097,14 @@ def main() -> int:
         rollout_launches.update({k: v for k, v in launches.items() if v})
     phase_estimator(dev, card)
     phase_gait_sweep(dev, card)
+    t0 = time.perf_counter()
+    fo_launches, fo_times = {}, {}
+    for part in ("11a", "11b"):
+        launches, fo_times[part] = phase_fullorder_trot(dev, card, part)
+        fo_launches.update({k: v for k, v in launches.items() if v})
+    fo_times["11c"] = phase_fullorder_branches(dev, card)
+    fo_wall = time.perf_counter() - t0
+    print(f"phase 11: the full-order closed loop took {fo_wall:.1f} s [{card}]", flush=True)
 
     kernels = [{
         "name": "riccati_admm", "route": "cuda",
@@ -898,14 +1112,16 @@ def main() -> int:
         "replaces": "pympc_quadruped_tpu/ops/qp/riccati_pallas.py:116",
         "launches": rollout_launches["riccati_admm"],
         "launches_in": "rollout(solver='riccati'), 3000 ticks, 150 solves",
-        "launches_run_ticks": ric_launches["riccati_admm"], "max_abs_err": max_err,
+        "launches_run_ticks": ric_launches["riccati_admm"],
+        "launches_fullorder": fo_launches["riccati_admm"],
+        "launches_fullorder_in": FO_LAUNCHES_IN["riccati"], "max_abs_err": max_err,
         "err": "max|dU| [N] vs plain", **ric_times, "library_ms": None,
     }]
     replaces = {"invert_spd": 242, "iterate": 38, "iterate_fused": 374, "solve_full": 417}
-    errs = {"invert_spd": "f64 residual ratio kernel/plain (bar 2)",
-            "iterate": "max f64 relative cost excess over jnp (p99 bar 2e-5, max 1e-4)",
-            "iterate_fused": "max f64 relative cost excess over jnp (p99 bar 2e-5, max 1e-4)",
-            "solve_full": "max f64 relative cost excess over jnp (p99 bar 2e-5, max 1e-4)"}
+    shapes = "; worst of h=16 (B=4096, 130) and h=10 (B=4096)"
+    excess = "max f64 relative cost excess over jnp (p99 bar 2e-5, max 1e-4)" + shapes
+    errs = {"invert_spd": "f64 residual ratio kernel/plain (bar 2)" + shapes,
+            "iterate": excess, "iterate_fused": excess, "solve_full": excess}
     for name in ("invert_spd", "iterate", "iterate_fused", "solve_full"):
         on_loop = name in ("invert_spd", "iterate")
         launches = (rollout_launches[name] if on_loop else
@@ -918,10 +1134,13 @@ def main() -> int:
             "launches": launches,
             "launches_in": ("rollout(solver='admm_fast'), 3000 ticks, 150 solves" if on_loop else
                             "timed solve_batch runs of its backend"),
-            **({"launches_run_ticks": cond_launches[name]} if on_loop else {}),
+            **({"launches_run_ticks": cond_launches[name],
+                "launches_fullorder": fo_launches[name],
+                "launches_fullorder_in": FO_LAUNCHES_IN["admm_fast"]} if on_loop else {}),
             "max_abs_err": cond_err[name], "err": errs[name], **cond_times[name],
         })
     print(json.dumps({"rollout": rollout_times}))
+    print(json.dumps({"fullorder": fo_times}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

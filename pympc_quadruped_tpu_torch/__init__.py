@@ -15,6 +15,14 @@ PyTorch idiom in place of the JAX one:
   (``aliengo()``, ``Gaits.*``, ``default_mpc_params()``, ``init_carry()``,
   the ``convert`` builders) builds on the card unless given ``device="cpu"``.
 
+The closed-loop entry points are :func:`.env.srb_env.rollout` (the trunk
+as one rigid body forced by the MPC's ground-reaction forces) and
+:func:`.env.fullorder.rollout` (the 18-DoF articulated tree of
+:mod:`.ops.rbd` driven by the controller's joint torques, with penalty
+foot contact).  On the card each replays its non-solve tick from one
+captured CUDA graph (:mod:`.env.graph_loop`) and runs the solve tick
+eagerly.
+
 The hand-written CUDA kernels are the counterparts of the JAX package's
 Pallas kernels: the Riccati-ADMM solve (``csrc/riccati_admm.cu``, wrapper
 :mod:`.ops.qp.riccati_cuda`) and the four condensed-ADMM kernels

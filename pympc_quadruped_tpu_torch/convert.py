@@ -10,8 +10,9 @@ dataclass), so both frameworks compute from the same numbers.
 Static fields (``MpcParams.horizon`` and friends) come back as Python
 ints/bools; every other leaf keeps its dtype (float32, int32, bool).
 The nested carries have functions of their own: ``ControllerCarry``, and the
-rollout's estimator-mode full carry ``(controller_carry, kf_state,
-held_forces)``.
+rollouts' estimator-mode full carries, ``(controller_carry, kf_state,
+held_forces)`` of ``srb_env`` and ``(controller_carry, kf_state, vworld,
+f_feet)`` of ``fullorder``.
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ import torch
 from pympc_quadruped_tpu_torch.control.controller import ControllerCarry
 from pympc_quadruped_tpu_torch.control.refmpc import MpcCarry
 from pympc_quadruped_tpu_torch.control.swing import SwingCarry
+from pympc_quadruped_tpu_torch.env.fullorder import ContactParams, FullOrderState
 from pympc_quadruped_tpu_torch.env.srb_env import SensorNoise, SrbState
 from pympc_quadruped_tpu_torch.env.terrain import Terrain
 from pympc_quadruped_tpu_torch.estimation.kf import KfParams, KfState
@@ -32,6 +34,7 @@ from pympc_quadruped_tpu_torch.models.gaits import GaitParams
 from pympc_quadruped_tpu_torch.models.mpc import MpcParams
 from pympc_quadruped_tpu_torch.models.robots import RobotParams
 from pympc_quadruped_tpu_torch.ops.kin import RobotObs
+from pympc_quadruped_tpu_torch.ops.rbd import RbdModel
 
 # Fields that are static Python values in both packages.
 _STATIC = {"horizon": int, "iterations_between_mpc": int,
@@ -72,6 +75,9 @@ terrain = functools.partial(_build, Terrain)
 kf_params = functools.partial(_build, KfParams)
 kf_state = functools.partial(_build, KfState)
 sensor_noise = functools.partial(_build, SensorNoise)
+full_order_state = functools.partial(_build, FullOrderState)
+rbd_model = functools.partial(_build, RbdModel)
+contact_params = functools.partial(_build, ContactParams)
 
 
 def controller_carry(arrays: dict, device="cuda") -> ControllerCarry:
@@ -82,11 +88,12 @@ def controller_carry(arrays: dict, device="cuda") -> ControllerCarry:
 
 
 def full_carry(arrays, device="cuda"):
-    """The rollout's full carry from the JAX one: a ``ControllerCarry``
-    (truth mode), or ``(controller_carry, kf_state, held_forces)`` given as
-    a tuple of (dict, dict, array) (estimator mode)."""
+    """A rollout's full carry from the JAX one: a ``ControllerCarry`` (truth
+    mode), or in estimator mode a tuple of (dict, dict, array...):
+    ``(controller_carry, kf_state, held_forces)`` (``srb_env``) or
+    ``(controller_carry, kf_state, vworld, f_feet)`` (``fullorder``)."""
     if isinstance(arrays, dict):
         return controller_carry(arrays, device)
-    c, k, f = arrays
+    c, k, *rest = arrays
     return (controller_carry(c, device), kf_state(k, device),
-            torch.from_numpy(np.array(f, copy=True)).to(device))
+            *(torch.from_numpy(np.array(a, copy=True)).to(device) for a in rest))

@@ -1,0 +1,125 @@
+"""The closed-loop rollout loop shared by the environments.
+
+JAX runs a rollout as one compiled ``lax.scan`` whose solve runs under a
+scalar ``lax.cond``.  Here a :class:`GraphLoop` holds the loop's static
+tensors (the env state, the full carry, a 0-d int32 device tick and the
+(num_ticks, B) metric rows) and advances one tick at a time: the solve tick
+(the host gate ``controller.is_solve_tick``) runs eagerly, so the solver
+kernels launch, and count, outside any graph; on a CUDA device every other
+tick replays one ``torch.cuda.CUDAGraph`` of the non-solve tick, captured
+once per loop over the static tensors.  On CPU tensors the same tick runs
+eagerly on every tick.
+
+An environment subclasses it with its ``_compute`` (one tick from
+(state, carry) at the device tick) and hands :meth:`_start` its initial
+state, carry and metric keys.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from pympc_quadruped_tpu_torch.control import controller as ctrl
+from pympc_quadruped_tpu_torch.tree import tree_map
+
+
+def _copy_into(dst, src):
+    """Write every tensor leaf of ``src`` into the matching leaf of ``dst``."""
+    tree_map(lambda d, s: d.copy_(s), dst, src)
+
+
+def capture_graph(body, warmup=None) -> torch.cuda.CUDAGraph:
+    """``body()`` captured in a CUDA graph, after two calls of ``warmup``
+    (``body`` unless given) on a side stream.  A capture failure raises."""
+    warmup = body if warmup is None else warmup
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            warmup()
+    torch.cuda.current_stream().wait_stream(side)
+    # keep_graph: the captured cudaGraph_t stays readable
+    # (``raw_cuda_graph()``, e.g. to count its nodes) beside its executable.
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        body()
+    graph.instantiate()
+    return graph
+
+
+@dataclass
+class Buffers:
+    """The loop's static tensors: the env state, the full carry, the absolute
+    tick on the device and the (num_ticks, B) metric rows."""
+
+    state: object
+    carry: object
+    tick: torch.Tensor
+    metrics: dict
+
+
+class GraphLoop:
+    """One rollout call's loop: its buffers, the tick function and, on a
+    CUDA device, the captured non-solve tick.  A subclass sets ``mpc``,
+    ``tick0`` (the absolute first tick) and ``num_ticks`` (the metric rows,
+    and the most ticks the loop takes), defines :meth:`_compute` and calls
+    :meth:`_start`."""
+
+    def _compute(self, state, carry, tick, solve: bool):
+        """One closed-loop tick from (state, carry) at the device tick
+        ``tick``: returns (state', carry', {metric: (B,) row})."""
+        raise NotImplementedError
+
+    def _start(self, state, carry, metric_keys, batch: int, device) -> None:
+        """Allocate the buffers from copies of ``state`` and ``carry`` and,
+        on a CUDA device, capture the non-solve tick."""
+        self.next_tick = self.tick0
+        self.buf = Buffers(
+            state=tree_map(torch.clone, state),
+            carry=tree_map(torch.clone, carry),
+            tick=torch.tensor(self.tick0, dtype=torch.int32, device=device),
+            metrics={k: torch.zeros((self.num_ticks, batch), device=device,
+                                    dtype=torch.bool if k == "diverged" else torch.float32)
+                     for k in metric_keys},
+        )
+        self.graph = self._capture() if torch.device(device).type == "cuda" else None
+
+    def _tick(self, buf: Buffers, solve: bool) -> None:
+        """One tick on ``buf``: every output written back into its static
+        input, each metric stored at the tick's row, the device tick advanced."""
+        state, carry, row = self._compute(buf.state, buf.carry, buf.tick, solve)
+        idx = (buf.tick - self.tick0).long().reshape(1)
+        for k, v in row.items():
+            buf.metrics[k].index_copy_(0, idx, v[None])
+        _copy_into(buf.state, state)
+        _copy_into(buf.carry, carry)
+        buf.tick.add_(1)
+
+    def _capture(self) -> torch.cuda.CUDAGraph:
+        """Capture the non-solve tick over ``self.buf``, after a warm-up over
+        copies of the buffers (which leaves them as they were)."""
+        scratch = tree_map(torch.clone, self.buf)
+        return capture_graph(lambda: self._tick(self.buf, solve=False),
+                             warmup=lambda: self._tick(scratch, solve=False))
+
+    def step(self) -> None:
+        """Advance one tick: the solve tick eagerly, any other by replay."""
+        if self.next_tick >= self.tick0 + self.num_ticks:
+            raise IndexError(f"the loop was sized for {self.num_ticks} ticks")
+        if ctrl.is_solve_tick(self.mpc, self.next_tick):
+            self._tick(self.buf, solve=True)
+        elif self.graph is not None:
+            self.graph.replay()
+        else:
+            self._tick(self.buf, solve=False)
+        self.next_tick += 1
+
+    def result(self, return_full_carry: bool = False):
+        """``((env_state, carry), metrics)``: the carry is the controller
+        carry, or with ``return_full_carry`` the whole loop carry (in
+        estimator mode a tuple led by the controller carry)."""
+        carry = self.buf.carry
+        if isinstance(carry, tuple) and not return_full_carry:
+            carry = carry[0]
+        return (self.buf.state, carry), self.buf.metrics

@@ -11,7 +11,8 @@ axis.
 ``lax.scan``; here, on a CUDA device, the non-solve tick is captured once
 per call as a ``torch.cuda.CUDAGraph`` over static state, carry, noise and
 metric buffers and a device tick counter, and replayed on every tick where
-``tick % iterations_between_mpc != 0``.  The solve tick runs eagerly behind
+``tick % iterations_between_mpc != 0`` (:class:`.graph_loop.GraphLoop`, which
+the full-order env shares).  The solve tick runs eagerly behind
 a host ``if`` (JAX's scalar ``lax.cond``), so the solver kernels launch, and
 count, outside the graph.  On CPU inputs the same tick function runs
 eagerly on every tick.
@@ -25,6 +26,7 @@ import torch
 
 from pympc_quadruped_tpu_torch.control import controller as ctrl
 from pympc_quadruped_tpu_torch.env import terrain as terrain_lib
+from pympc_quadruped_tpu_torch.env.graph_loop import GraphLoop
 from pympc_quadruped_tpu_torch.estimation import kf
 from pympc_quadruped_tpu_torch.models.command import Command
 from pympc_quadruped_tpu_torch.models.gaits import GaitParams
@@ -272,25 +274,10 @@ def init_full_carry(
     return (carry0, kf0, forces0.reshape(B, 12))
 
 
-def _copy_into(dst, src):
-    """Write every tensor leaf of ``src`` into the matching leaf of ``dst``."""
-    tree_map(lambda d, s: d.copy_(s), dst, src)
-
-
-@dataclass
-class _Buffers:
-    """The loop's static tensors: the env state, the full carry, the absolute
-    tick on the device and the (num_ticks, B) metric rows."""
-
-    state: SrbState
-    carry: object
-    tick: torch.Tensor
-    metrics: dict
-
-
-class RolloutLoop:
-    """One :func:`rollout` call's loop: its buffers, the tick function and,
-    on a CUDA device, the captured non-solve tick.
+class RolloutLoop(GraphLoop):
+    """One :func:`rollout` call's loop (:class:`..graph_loop.GraphLoop`): its
+    buffers, the SRB tick function and, on a CUDA device, the captured
+    non-solve tick.
 
     :meth:`step` advances one tick: a solve tick (host gate) runs eagerly,
     any other tick replays the graph (or runs eagerly on the CPU).  The
@@ -318,7 +305,7 @@ class RolloutLoop:
         self.terrain, self.auto_reset = terrain, auto_reset
         self.estimator, self.sensor_noise = estimator, sensor_noise
         self.cmd_ramp_ticks, self.contact_source = cmd_ramp_ticks, contact_source
-        self.tick0, self.num_ticks, self.next_tick = int(tick0), int(num_ticks), int(tick0)
+        self.tick0, self.num_ticks = int(tick0), int(num_ticks)
 
         self.init_state = init_state
         self.carry0 = init_full_carry(robot, mpc, init_state, estimator)
@@ -330,15 +317,7 @@ class RolloutLoop:
             keys += ["est_pos_err", "est_vel_err"]
             if contact_source == "measured":
                 keys.append("contact_mismatch")
-        self.buf = _Buffers(
-            state=tree_map(torch.clone, init_state),
-            carry=tree_map(torch.clone, start),
-            tick=torch.tensor(self.tick0, dtype=torch.int32, device=dev),
-            metrics={k: torch.zeros((self.num_ticks, B), device=dev,
-                                    dtype=torch.bool if k == "diverged" else torch.float32)
-                     for k in keys},
-        )
-        self.graph = self._capture() if dev.type == "cuda" else None
+        self._start(init_state, start, keys, B, dev)
 
     def _compute(self, state, carry, tick, solve: bool):
         """One closed-loop tick from (state, carry) at the device tick
@@ -397,55 +376,6 @@ class RolloutLoop:
             if self.contact_source == "measured":
                 row["contact_mismatch"] = (contact - plan_contact).abs().mean(dim=-1)
         return state, new_carry, row
-
-    def _tick(self, buf: _Buffers, solve: bool) -> None:
-        """One tick on ``buf``: every output written back into its static
-        input, each metric stored at the tick's row, the device tick advanced."""
-        state, carry, row = self._compute(buf.state, buf.carry, buf.tick, solve)
-        idx = (buf.tick - self.tick0).long().reshape(1)
-        for k, v in row.items():
-            buf.metrics[k].index_copy_(0, idx, v[None])
-        _copy_into(buf.state, state)
-        _copy_into(buf.carry, carry)
-        buf.tick.add_(1)
-
-    def _capture(self) -> torch.cuda.CUDAGraph:
-        """Capture the non-solve tick over ``self.buf``, after a warm-up on a
-        side stream over copies of the buffers (which leaves them as they
-        were).  A capture failure raises."""
-        scratch = tree_map(torch.clone, self.buf)
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            for _ in range(2):
-                self._tick(scratch, solve=False)
-        torch.cuda.current_stream().wait_stream(side)
-        # keep_graph: the captured cudaGraph_t stays readable
-        # (``raw_cuda_graph()``, e.g. to count its nodes) beside its executable.
-        graph = torch.cuda.CUDAGraph(keep_graph=True)
-        with torch.cuda.graph(graph):
-            self._tick(self.buf, solve=False)
-        graph.instantiate()
-        return graph
-
-    def step(self) -> None:
-        """Advance one tick: the solve tick eagerly, any other by replay."""
-        if self.next_tick >= self.tick0 + self.num_ticks:
-            raise IndexError(f"the loop was sized for {self.num_ticks} ticks")
-        if ctrl.is_solve_tick(self.mpc, self.next_tick):
-            self._tick(self.buf, solve=True)
-        elif self.graph is not None:
-            self.graph.replay()
-        else:
-            self._tick(self.buf, solve=False)
-        self.next_tick += 1
-
-    def result(self, return_full_carry: bool = False):
-        """``((env_state, carry), metrics)`` as :func:`rollout` returns them."""
-        carry = self.buf.carry
-        if self.use_kf and not return_full_carry:
-            carry = carry[0]
-        return (self.buf.state, carry), self.buf.metrics
 
 
 def rollout(

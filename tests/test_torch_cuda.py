@@ -12,14 +12,15 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (INV_RATIO_BAR, closed_loop_setup, condensed_problem, invariants_ok,
+from chip_smoke import (INV_RATIO_BAR, closed_loop_setup, condensed_problem,
+                        fullorder_graph_and_eager, fullorder_setup, invariants_ok,
                         inverse_residual, qp_invariants, random_problem)
 from pympc_quadruped_tpu_torch import tree
 from pympc_quadruped_tpu_torch.control import controller as ctrl
-from pympc_quadruped_tpu_torch.env import srb_env
+from pympc_quadruped_tpu_torch.env import fullorder, srb_env, terrain
 from pympc_quadruped_tpu_torch.estimation import kf
 from pympc_quadruped_tpu_torch.loop import run_ticks
-from pympc_quadruped_tpu_torch.models import Command, Gaits, a1, default_mpc_params
+from pympc_quadruped_tpu_torch.models import Command, Gaits, a1, aliengo, default_mpc_params
 from pympc_quadruped_tpu_torch.ops.qp import admm_cuda, admm_fast, riccati, riccati_cuda
 
 
@@ -184,6 +185,66 @@ def test_cuda_estimator_rollout_graph_equals_eager(cuda_device, contact_source):
         eager._tick(eager.buf, solve=ctrl.is_solve_tick(mpc, tick))
     (s_e, c_e), m_e = eager.result(return_full_carry=True)
     _assert_bitwise((s_g, c_g), (s_e, c_e))
+    for k in m_g:
+        _assert_bitwise(m_g[k], m_e[k])
+    assert float(m_g["est_pos_err"].max()) > 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("part,solver", [("11a", "riccati"), ("11b", "admm_fast")])
+def test_cuda_fullorder_graph_equals_eager(cuda_device, part, solver):
+    """100 ticks of the full-order trot at B=33 (chip_smoke phase 11's
+    configurations): the rollout through its graph bit for bit the eager
+    tick, with one launch of each solver kernel per solve tick."""
+    mpc, robot, gait, cmd, state0 = fullorder_setup(cuda_device, part, 33)
+    before = {"riccati_admm": riccati_cuda.LAUNCHES, **admm_cuda.LAUNCHES}
+    (g, m_g), (e, m_e) = fullorder_graph_and_eager((robot, mpc, gait, cmd), 100,
+                                                   state0=state0, solver=solver)
+    torch.cuda.synchronize()
+    after = {"riccati_admm": riccati_cuda.LAUNCHES, **admm_cuda.LAUNCHES}
+    on_path = ("riccati_admm",) if solver == "riccati" else ("invert_spd", "iterate")
+    assert {k: after[k] - before[k] for k in after} == {k: 10 * (k in on_path) for k in after}
+    _assert_bitwise(g, e)
+    for k in m_g:
+        _assert_bitwise(m_g[k], m_e[k])
+    assert not bool(m_g["diverged"].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["truth", "estimator"])
+def test_cuda_fullorder_chunked_equals_monolithic(cuda_device, mode):
+    """2 x 60 ticks (state0, carry0 = the full carry, tick0) == 120 ticks on
+    the card, bit for bit, sensor noise included."""
+    mpc, robot, gait, cmd, state0 = fullorder_setup(cuda_device, "11a", 33)
+    kw = dict(solver="riccati", return_full_carry=True)
+    if mode == "estimator":
+        kw.update(estimator=kf.KfParams.default(device=cuda_device), key=7)
+    (s_m, c_m), m_m = fullorder.rollout(robot, mpc, gait, cmd, 120, state0=state0, **kw)
+    (s_1, c_1), m_1 = fullorder.rollout(robot, mpc, gait, cmd, 60, state0=state0, **kw)
+    (s_2, c_2), m_2 = fullorder.rollout(robot, mpc, gait, cmd, 60, state0=s_1, carry0=c_1,
+                                        tick0=60, **kw)
+    _assert_bitwise((s_m, c_m), (s_2, c_2))
+    for k in m_m:
+        _assert_bitwise(m_m[k], torch.cat([m_1[k], m_2[k]]))
+
+
+@pytest.mark.cuda
+def test_cuda_fullorder_estimator_terrain_substeps_graph_equals_eager(cuda_device):
+    """The estimator on noisy sensors, rough terrain, ``substeps=2``,
+    auto-reset and a command ramp (chip_smoke phase 11c) at B=33, 60 ticks:
+    the graph's ticks bit for bit the eager tick's."""
+    B = 33
+    mpc = default_mpc_params(10, device=cuda_device)
+    robot = tree.tile(aliengo(device=cuda_device), B)
+    gait = tree.tile(Gaits.trotting10(device=cuda_device), B)
+    cmd = tree.tile(Command.trot_forward(0.8, device=cuda_device), B)
+    terr = tree.tile(terrain.random_rough(torch.Generator(device=cuda_device).manual_seed(3),
+                                          amplitude=0.02, device=cuda_device), B)
+    (g, m_g), (e, m_e) = fullorder_graph_and_eager(
+        (robot, mpc, gait, cmd), 60, terrain=terr, estimator=kf.KfParams.default(
+            device=cuda_device), sensor_noise=srb_env.SensorNoise.default(cuda_device), key=3,
+        substeps=2, auto_reset=True, cmd_ramp_ticks=400)
+    _assert_bitwise(g, e)
     for k in m_g:
         _assert_bitwise(m_g[k], m_e[k])
     assert float(m_g["est_pos_err"].max()) > 0.0
