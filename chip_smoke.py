@@ -85,9 +85,29 @@ result):
    Kalman filter on noisy sensors with measured contact, 2 cm rough
    terrain, ``substeps=2``, ``auto_reset`` and a 400-tick command ramp:
    graph against eager bit for bit, then 1500 ticks finite with no
-   scenario diverged.
+   scenario diverged;
+12. the parity solvers (library calls and PyTorch ops, no hand kernel):
+   12a, phase 3's scenarios at their first solve tick (B=4096, h=16)
+   through ``engine.solve_scenarios`` with ``"admm_ref"`` and ``"ipm"``
+   and through the parity pipeline (``build_qp_ff`` + ``ipm.solve_batch``
+   with ``PARITY_CONFIG`` and the low words), against a yardstick, the
+   fast path cold (YARDSTICK) whose (U, lam) must pass the f64 KKT gate on
+   the card: every route finite, swing forces exactly 0, cone rows within
+   1e-3 fz_max, and its f64 cost excess over the best feasible route at
+   most 1e-4 of the cost scale at p99 (5x for the worst); the parity
+   route's first-step GRFs within 1e-3 (the BASELINE bar), for the worst
+   scenario, of the same call on the CPU over the first 256 scenarios and
+   of the same scenarios solved on the card in batches of 256 over all
+   4096; each route's time (``profiling.stage_timings``) against the 20 ms
+   budget.
+   12b, the golden lockstep (``step_batch(solver="ipm_parity")``, h=10,
+   B=1, tests/test_golden_lockstep.py's 200 ticks) on the card against
+   the CPU.  12c, ``srb_env.rollout`` with ``"admm"`` and ``"ipm"`` on phase
+   3's scenarios, 1000 ticks (cut from 3000): finite, none diverged, >=
+   99% in the band over the last 250 ticks (tests/test_h16_config.py:61-69
+   without the displacement term); the period and the eager solve tick.
 
-The last two lines are the kernel summary and the device record.  Imports
+The last lines are the kernel summary and the device record.  Imports
 torch, numpy and the port only.
 """
 from __future__ import annotations
@@ -103,7 +123,7 @@ import time
 import numpy as np
 import torch
 
-from pympc_quadruped_tpu_torch import _build, tree
+from pympc_quadruped_tpu_torch import _build, engine, tree
 from pympc_quadruped_tpu_torch.control import controller as ctrl
 from pympc_quadruped_tpu_torch.control import refmpc
 from pympc_quadruped_tpu_torch.env import fullorder, srb_env, terrain
@@ -112,7 +132,9 @@ from pympc_quadruped_tpu_torch.loop import run_ticks
 from pympc_quadruped_tpu_torch.models import Command, Gaits, a1, aliengo, default_mpc_params
 from pympc_quadruped_tpu_torch.parallel import sweep
 from pympc_quadruped_tpu_torch.ops import condense, lie, srb
-from pympc_quadruped_tpu_torch.ops.qp import admm_cuda, admm_fast, riccati, riccati_cuda
+from pympc_quadruped_tpu_torch.ops.kin import RobotObs
+from pympc_quadruped_tpu_torch.ops.qp import admm_cuda, admm_fast, cones, ipm, riccati, riccati_cuda
+from pympc_quadruped_tpu_torch.utils import observability, profiling
 
 B_MAIN, B_RAGGED, HORIZON = 4096, 130, 16
 N_TICKS, BAND_TICKS, PERIOD = 3000, 750, 20
@@ -1025,6 +1047,273 @@ def phase_fullorder_branches(dev, card):
     return dict(wall_s=wall, diverged=n_div)
 
 
+# ---------------------------------------------------------------------------
+# The parity solvers
+# ---------------------------------------------------------------------------
+
+#: Phase 12a's bar on the f64 cost excess over the best feasible route, as a
+#: share of |cost| + 1, for the 99th percentile (the worst scenario gets
+#: WORST_FACTOR times it): tests/test_torch_admm.py's h=16 bar.
+PARITY_COST_BAR = 1e-4
+#: The yardstick: admm_fast, cold, 320 iterations at the in-loop preset's
+#: rho 1e-3 (at the cold preset's 5e-4 the certificate's stationarity stalls
+#: near 1.4e-2 p99 on these problems whatever the iterations, above the
+#: gate's 1e-2).  And the parity route's bar (the BASELINE GRF parity bar,
+#: max |dU| / (1 + |U|) over the first-step GRFs, held by the worst
+#: scenario) against the same call on the CPU, on the first CPU_B
+#: scenarios, and against the same scenarios solved on the card in batches
+#: of CPU_B, over all of them.
+YARDSTICK = admm_fast.AdmmFastConfig(iterations=320, rho=admm_fast.AdmmFastConfig.inloop().rho)
+PARITY_GRF_BAR, CPU_B = 1e-3, 256
+#: Phase 12c: ticks (cut from phase 8's 3000) and the tail of the band.
+CL_TICKS, CL_TAIL = 1000, 250
+
+
+def engine_inputs(dev, B):
+    """Phase 3's jittered scenarios (the first ``B``) at their first solve
+    tick, as ``engine.solve_scenarios`` takes them: (mpc, robot, (x_t, yaw,
+    feet, X_ref, table))."""
+    mpc, robot, gait, cmd, carry, state = closed_loop_setup(dev)
+    obs = srb_env.observe(robot, state)
+    ks, _, table, x_t, mpc_carry, vel = ctrl._pre_solve(robot, mpc, gait, cmd, carry, obs, 0)
+    _, X = refmpc.reference_trajectory(mpc_carry, x_t, vel, cmd, mpc, robot, table)
+    inputs = (x_t, x_t[:, 2], ks.pos_base_feet, X, table)
+    return mpc, tree.tile(aliengo(device=dev), B), tuple(t[:B].contiguous() for t in inputs)
+
+
+def parity_routes(mpc, robot, inputs) -> dict:
+    """Phase 12a's routes, each a function returning the swing-masked
+    full-horizon U (B,12h): the engine's ``admm_ref`` and ``ipm``, and the
+    parity pipeline (``build_qp_ff`` + ``ipm.solve_batch`` with
+    ``PARITY_CONFIG`` and the low words)."""
+    def eng(solver):
+        return lambda: engine.solve_scenarios(robot, mpc, *inputs, solver=solver,
+                                              return_full_horizon=True)
+
+    def parity():
+        x_t, yaw, feet, X, table = inputs
+        H, H_lo, g, g_lo, mv = refmpc.build_qp_ff(robot, mpc, x_t, yaw, feet, X, table)
+        G, h_vec, _ = cones.block_constraints(table, robot.fz_max, mpc)
+        return ipm.solve_batch(H, g, G, h_vec, ipm.PARITY_CONFIG, H_lo, g_lo) * mv
+
+    return {"admm_ref": eng("admm_ref"), "ipm": eng("ipm"), "parity": parity}
+
+
+def yardstick(mpc, robot, inputs):
+    """The fast path, cold, with the YARDSTICK config and its duals."""
+    return engine.solve_scenarios(robot, mpc, *inputs, solver="admm", return_full_horizon=True,
+                                  return_duals=True, admm_fast_cfg=YARDSTICK)
+
+
+def cone_violation(U, table, fz_max, mpc):
+    """Per-scenario worst friction-pyramid row violation [N] of U, in f64."""
+    P0 = admm_fast.cone_pattern(mpc.friction_coef, mpc.horizon).double()
+    srow, l, u = admm_fast.row_bounds(table, fz_max, mpc.horizon)
+    z = U.double() @ P0.T
+    viol = torch.maximum(l - z, torch.where(torch.isfinite(u), z - u, torch.zeros_like(z)))
+    return (viol * srow).clamp(min=0.0).amax(-1)
+
+
+def f64_cost(H64, g64, U):
+    """Per-scenario f64 cost 1/2 U^T H U + g^T U."""
+    V = U.double()
+    return 0.5 * (V[:, None] @ H64 @ V[..., None])[:, 0, 0] + (g64 * V).sum(-1)
+
+
+def grf_deviation(U, U_ref):
+    """max |U - U_ref| / (1 + |U_ref|) per scenario over the first-step GRFs
+    (p99, max) and over the full horizon (max)."""
+    rel = (U.double() - U_ref.double()).abs() / (1.0 + U_ref.double().abs())
+    return (*p99_max(rel[:, :12].amax(-1)), float(rel.max()))
+
+
+def phase_parity_engine(dev, card):
+    """Phase 12a: the parity routes at B=4096, h=16, held to the QP's
+    invariants against each other, the certified yardstick and the same
+    calls on the CPU; then each route's time."""
+    mpc, robot, inputs = engine_inputs(dev, B_MAIN)
+    table, fz_max = inputs[4], float(robot.fz_max.max())
+    routes = parity_routes(mpc, robot, inputs)
+    U = {name: fn() for name, fn in routes.items()}
+    U["yardstick"], lam = yardstick(mpc, robot, inputs)
+    torch.cuda.synchronize()
+    H, g, mv = refmpc.build_qp(robot, mpc, *inputs)
+    res = observability.kkt_residuals_f64(H, g, table, robot.fz_max, U["yardstick"], lam, mpc)
+    kkt_ok, kkt = observability.kkt_gate(res, robot.fz_max)
+    print(f"phase 12a: yardstick admm_fast cold {YARDSTICK.iterations} it, rho {YARDSTICK.rho:g}, "
+          f"at B={B_MAIN} h={HORIZON}: "
+          f"f64 KKT certificate on the card {kkt} (gate {'passes' if kkt_ok else 'FAILS'})",
+          flush=True)
+    check(kkt_ok, "phase 12a: the yardstick fails the f64 KKT gate")
+
+    # Every route's f64 cost on the float64-condensed problem (hi + lo words).
+    H_hi, H_lo, g_hi, g_lo, _ = refmpc.build_qp_ff(robot, mpc, *inputs)
+    H64, g64 = H_hi.double() + H_lo.double(), g_hi.double() + g_lo.double()
+    cost = {k: f64_cost(H64, g64, V) for k, V in U.items()}
+    cone = {k: cone_violation(V, table, robot.fz_max, mpc) for k, V in U.items()}
+    feasible = {k: cone[k] <= CONE_SHARE * fz_max for k in U}
+    best = torch.stack([torch.where(feasible[k], cost[k], torch.full_like(cost[k], float("inf")))
+                        for k in U]).amin(0)
+    check(bool(torch.isfinite(best).all()), "phase 12a: a scenario has no feasible route")
+    for name, V in U.items():
+        finite = bool(torch.isfinite(V).all())
+        swing_zero = bool((V[mv == 0] == 0).all())
+        excess = (cost[name] - best) / (best.abs() + 1.0)
+        p99, worst = p99_max(excess)
+        cone_max = float(cone[name].max())
+        print(f"phase 12a: {name} at B={B_MAIN} h={HORIZON}: finite {finite}, swing forces "
+              f"exactly 0 {swing_zero}, cone violation max {cone_max:.3e} N (bar "
+              f"{CONE_SHARE * fz_max:g}), f64 cost excess over the best feasible route p99 "
+              f"{p99:.3e} / max {worst:.3e} (bars {PARITY_COST_BAR:g} / "
+              f"{WORST_FACTOR * PARITY_COST_BAR:g})", flush=True)
+        check(finite and swing_zero and cone_max <= CONE_SHARE * fz_max
+              and p99 <= PARITY_COST_BAR and worst <= WORST_FACTOR * PARITY_COST_BAR,
+              f"phase 12a: route {name} outside the bars")
+
+    # The same calls on the CPU, on the first CPU_B scenarios.
+    cpu = torch.device("cpu")
+    mpc_c, robot_c = tree.to(mpc, cpu), tree.tile(aliengo(device=cpu), CPU_B)
+    inputs_c = tuple(t[:CPU_B].cpu() for t in inputs)
+    U_cpu = {name: fn() for name, fn in parity_routes(mpc_c, robot_c, inputs_c).items()}
+    first_p99, first_max, full_max = grf_deviation(U["parity"][:CPU_B].cpu(), U_cpu["parity"])
+    diffs = {}
+    for k in ("admm_ref", "ipm"):
+        c = f64_cost(H64[:CPU_B].cpu(), g64[:CPU_B].cpu(), U_cpu[k])
+        diffs[k] = float(((cost[k][:CPU_B].cpu() - c).abs() / (c.abs() + 1.0)).max())
+    print(f"phase 12a: the first {CPU_B} scenarios run by the port on the CPU: parity first-step "
+          f"GRFs |dU|/(1+|U|) p99 {first_p99:.3e} / max {first_max:.3e} (bar "
+          f"{PARITY_GRF_BAR:g} for the max); full horizon max {full_max:.3e} "
+          f"(printed, not gated); f32 routes' two-sided f64 cost difference card vs CPU "
+          f"(printed, not gated): admm_ref {diffs['admm_ref']:.3e}, ipm {diffs['ipm']:.3e}",
+          flush=True)
+    check(first_max < PARITY_GRF_BAR,
+          "phase 12a: the parity route on the card disagrees with the CPU")
+    # The same scenarios on the card in batches of CPU_B: the answer must not
+    # depend on the batch it was solved in.
+    robot_b = tree.tile(aliengo(device=dev), CPU_B)
+    U_chunks = torch.cat([parity_routes(mpc, robot_b, tuple(t[lo:lo + CPU_B] for t in inputs))
+                          ["parity"]() for lo in range(0, B_MAIN, CPU_B)])
+    b_p99, b_max, b_full = grf_deviation(U["parity"], U_chunks)
+    print(f"phase 12a: parity on the card at B={B_MAIN} against the same scenarios in batches "
+          f"of {CPU_B}: first-step GRFs p99 {b_p99:.3e} / max {b_max:.3e} (bar "
+          f"{PARITY_GRF_BAR:g} for the max); full horizon max {b_full:.3e} (printed, not gated)",
+          flush=True)
+    check(b_max < PARITY_GRF_BAR,
+          "phase 12a: the parity route on the card depends on the batch it is solved in")
+
+    times = {}
+    solves = dict(routes, yardstick=lambda: yardstick(mpc, robot, inputs))
+    for name, fn in solves.items():
+        t = profiling.stage_timings(lambda *_: fn(), *inputs, iters=5, warmup=1)
+        times[name] = t
+        print(f"phase 12a: {name} at B={B_MAIN} h={HORIZON}: p50 {t['p50_ms']:.3f} ms, p99 "
+              f"{t['p99_ms']:.3f} ms against the {t['budget_ms']:g} ms budget (within: "
+              f"{t['within_budget']}) [{card}]", flush=True)
+    return {k: {"p50_ms": v["p50_ms"], "p99_ms": v["p99_ms"]} for k, v in times.items()}
+
+
+def golden_obs(tick: int):
+    """The synthetic trot observations of tests/test_golden_lockstep.py:45-78
+    at 1 kHz tick ``tick`` (a copy: this script imports nothing of tests/)."""
+    t = tick * 0.001
+    rpy = np.array([0.01 * np.sin(7.1 * t), 0.02 * np.sin(5.3 * t + 1.0),
+                    0.03 * np.sin(2.9 * t)])
+    cr, sr = np.cos(rpy[0] / 2), np.sin(rpy[0] / 2)
+    cp, sp = np.cos(rpy[1] / 2), np.sin(rpy[1] / 2)
+    cy, sy = np.cos(rpy[2] / 2), np.sin(rpy[2] / 2)
+    quat = np.array([cy * cp * cr + sy * sp * sr, cy * cp * sr - sy * sp * cr,
+                     cy * sp * cr + sy * cp * sr, sy * cp * cr - cy * sp * sr])
+    pos = np.array([1.1 * t, 0.02 * np.sin(3.0 * t), 0.38 + 0.008 * np.sin(9.0 * t)])
+    vel = np.array([1.1 + 0.1 * np.sin(4.0 * t), 0.05 * np.cos(3.0 * t),
+                    0.05 * np.sin(6.0 * t)])
+    omega = np.array([0.1 * np.sin(8.0 * t), 0.15 * np.cos(6.0 * t), 0.05 * np.sin(3.0 * t)])
+    q = np.tile([0.0, 0.8, -1.6], 4) + 0.15 * np.sin(11.0 * t + np.arange(12) * 0.7)
+    qdot = 1.5 * np.cos(11.0 * t + np.arange(12) * 0.7)
+    return {"pos_base": pos, "lin_vel_base": vel, "quat_base": quat, "ang_vel_base": omega,
+            "q": q, "qdot": qdot}
+
+
+def golden_run(dev, ticks=200):
+    """``controller.step_batch(solver="ipm_parity")``, Aliengo, h=10,
+    TROTTING10 at 1.2 m/s, B=1, over ``ticks`` ticks of golden_obs: the
+    per-tick (forces, torques, swing states) as float64 numpy arrays."""
+    mpc = default_mpc_params(10, device=dev)
+    robot = tree.tile(aliengo(device=dev), 1)
+    gait = tree.tile(Gaits.trotting10(device=dev), 1)
+    cmd = tree.tile(Command.trot_forward(1.2, device=dev), 1)
+    carry = tree.tile(ctrl.init_carry(10, device=dev), 1)
+    rows = []
+    for tick in range(ticks):
+        obs = RobotObs(**{k: torch.tensor(np.float32(v)[None], device=dev)
+                          for k, v in golden_obs(tick).items()})
+        carry, out = ctrl.step_batch(robot, mpc, gait, cmd, carry, obs, tick,
+                                     solver="ipm_parity")
+        rows.append(tuple(t[0].double().cpu().numpy()
+                          for t in (out.contact_forces, out.torques, out.swing_states)))
+    return rows
+
+
+def phase_golden(dev, card):
+    """Phase 12b: the golden lockstep's 200 ticks on the card against the
+    same ticks run by the port on the CPU."""
+    t0 = time.perf_counter()
+    gpu = golden_run(dev)
+    wall = time.perf_counter() - t0
+    cpu = golden_run(torch.device("cpu"))
+    rel = lambda a, b: float(np.max(np.abs(a - b) / (1.0 + np.abs(b))))
+    grf = max(rel(gpu[t][0], cpu[t][0]) for t in range(0, len(gpu), 20))
+    torque = max(rel(g[1], c[1]) for g, c in zip(gpu, cpu))
+    swing = all(np.array_equal(g[2], c[2]) for g, c in zip(gpu, cpu))
+    held = all(np.array_equal(gpu[t][0], gpu[t - 1][0]) for t in range(len(gpu)) if t % 20)
+    print(f"phase 12b: golden lockstep controller.step_batch(solver='ipm_parity') Aliengo h=10 "
+          f"trotting10 1.2 m/s B=1, {len(gpu)} ticks on the card in {wall:.1f} s against the "
+          f"CPU: solve-tick GRFs max rel {grf:.3e} (bar 1e-4), torques max rel {torque:.3e} "
+          f"(bar 1e-3), swing states equal {swing}, forces held between solves {held} [{card}]",
+          flush=True)
+    check(grf < 1e-4 and torque < 1e-3 and swing and held,
+          "phase 12b: the golden lockstep on the card disagrees with the CPU")
+
+
+def phase_parity_closed_loop(dev, card, solver):
+    """Phase 12c: ``srb_env.rollout`` with ``solver`` on phase 3's
+    scenarios, CL_TICKS ticks; the band, then the period and its eager
+    solve tick."""
+    B = B_MAIN
+    mpc, robot, gait, cmd, carry, state = closed_loop_setup(dev, B)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    (state_f, carry_f), m = srb_env.rollout(robot, mpc, gait, cmd, CL_TICKS, init_state=state,
+                                            solver=solver)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernel_launches()
+    finite = all(bool(torch.isfinite(t).all()) for t in (state_f.pos, state_f.vel, state_f.quat))
+    diverged = int(m["diverged"].any(dim=0).sum())
+    vel_err = m["vel_err"][-CL_TAIL:].mean(dim=0)
+    height = state_f.pos[:, 2]
+    ok = (~m["diverged"].any(dim=0)) & (vel_err < 0.15) & (height > 0.34) & (height < 0.42)
+    share = float(ok.float().mean())
+    print(f"phase 12c: rollout solver={solver} B={B} h={HORIZON} {CL_TICKS} ticks (cut from "
+          f"phase 8's {N_TICKS} to fit the time limit) in {wall:.1f} s: finite {finite}, "
+          f"{diverged} diverged, {int(ok.sum())}/{B} in band over the last {CL_TAIL} ticks "
+          f"({share:.4f}, bar {BAND_SHARE}); median vel_err {float(vel_err.median()):.4f} m/s, "
+          f"median final height {float(height.median()):.4f} m; hand-kernel launches "
+          f"{sum(launches.values())}", flush=True)
+    check(finite and diverged == 0 and share >= BAND_SHARE,
+          f"phase 12c: rollout {solver} outside the bars")
+    loop = srb_env.RolloutLoop(robot, mpc, gait, cmd, PERIOD * 5, init_state=state_f,
+                               carry_in=carry_f, tick0=CL_TICKS, solver=solver)
+    loop.step()
+    for _ in range(PERIOD - 1):
+        loop.step()
+    period, solve_tick, replay_tick = time_rollout_periods(loop, periods=3)
+    print(f"phase 12c: rollout solver={solver} B={B}: one {PERIOD}-tick period {period:.3f} ms "
+          f"against the 20 ms real-time limit; eager solve tick {solve_tick:.3f} ms, replayed "
+          f"non-solve tick {replay_tick:.3f} ms (medians of 3 periods) [{card}]", flush=True)
+    return dict(B=B, period_ms=period, solve_tick_ms=solve_tick, in_band=share, wall_s=wall)
+
+
 def entry_report(log: str, kernel: str) -> str:
     """ptxas's register and spill lines for one kernel's entry function,
     and the largest spill store of any function in the library (the
@@ -1105,6 +1394,12 @@ def main() -> int:
     fo_times["11c"] = phase_fullorder_branches(dev, card)
     fo_wall = time.perf_counter() - t0
     print(f"phase 11: the full-order closed loop took {fo_wall:.1f} s [{card}]", flush=True)
+    t0 = time.perf_counter()
+    parity = {"engine": phase_parity_engine(dev, card)}
+    phase_golden(dev, card)
+    parity["rollout"] = {s: phase_parity_closed_loop(dev, card, s) for s in ("admm", "ipm")}
+    parity["wall_s"] = time.perf_counter() - t0
+    print(f"phase 12: the parity solvers took {parity['wall_s']:.1f} s [{card}]", flush=True)
 
     kernels = [{
         "name": "riccati_admm", "route": "cuda",
@@ -1141,6 +1436,7 @@ def main() -> int:
         })
     print(json.dumps({"rollout": rollout_times}))
     print(json.dumps({"fullorder": fo_times}))
+    print(json.dumps({"parity": parity}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,11 +10,16 @@ reads a host bool, the tick math reads ``tick``, which may be a 0-d device
 tensor, so a non-solve tick can be captured in a CUDA graph
 (``env.srb_env.rollout``).
 
-Ported solvers: ``"admm_fast"`` (the default; the condensed QP of
+Solvers: ``"admm_fast"`` (the default; the condensed QP of
 :func:`refmpc.build_qp` solved by :mod:`..ops.qp.admm_fast`, whose CUDA
-kernels run on the card) and ``"riccati"`` (the sparse path).  ``"admm"``,
-``"ipm"`` and ``"ipm_parity"`` raise ``NotImplementedError`` naming the
-ROADMAP item they wait for.
+kernels run on the card) and ``"riccati"`` (the sparse path, its own CUDA
+kernel), both warm-started from the previous solve; and the parity
+solvers, cold-started library-call paths: ``"admm"`` (the plain ADMM of
+:mod:`..ops.qp.admm`, the on-device oracle), ``"ipm"`` (the f32
+interior-point method of :mod:`..ops.qp.ipm`) and ``"ipm_parity"``
+(float64 condensing, :func:`refmpc.build_qp_ff`, and the IPM's parity
+configuration, solved in float64: the BASELINE 1e-3 GRF parity
+configuration).
 """
 from __future__ import annotations
 
@@ -29,24 +34,14 @@ from pympc_quadruped_tpu_torch.models.gaits import GaitParams
 from pympc_quadruped_tpu_torch.models.mpc import MpcParams
 from pympc_quadruped_tpu_torch.models.robots import RobotParams
 from pympc_quadruped_tpu_torch.ops import gaitsched, kin, srb
-from pympc_quadruped_tpu_torch.ops.qp import admm_fast, cones, riccati
+from pympc_quadruped_tpu_torch.ops.qp import admm, admm_fast, cones, ipm, riccati
 from pympc_quadruped_tpu_torch.tree import tree_map
 
 DEFAULT_SOLVER = "admm_fast"
-SOLVERS = ("admm_fast", "riccati")
-
-_NOT_PORTED = {
-    "admm": "the parity solvers (ROADMAP Queue 1, item 9)",
-    "ipm": "the parity solvers (ROADMAP Queue 1, item 9)",
-    "ipm_parity": "the parity solvers (ROADMAP Queue 1, item 9)",
-}
+SOLVERS = ("admm_fast", "riccati", "admm", "ipm", "ipm_parity")
 
 
 def check_solver(solver: str) -> None:
-    if solver in _NOT_PORTED:
-        raise NotImplementedError(
-            f"solver={solver!r} is not ported yet: it waits for {_NOT_PORTED[solver]}"
-        )
     if solver not in SOLVERS:
         raise ValueError(f"unknown solver {solver!r}")
 
@@ -85,15 +80,17 @@ def _pre_solve(robot, mpc, gait, cmd, carry, obs, tick):
 
 
 def _solve_branch(robot, mpc, cmd, mpc_carry, ks, x_t, vel_des_world, table,
-                  solver, admm_fast_cfg, riccati_cfg):
+                  solver, ipm_cfg, admm_cfg, admm_fast_cfg, riccati_cfg):
     """Reference trajectory + batched QP solve; returns (carry', forces).
 
-    Both solvers warm-start from the previous solve shifted by one MPC step
-    (receding horizon: block k of this solve aligns with block k+1 of the
-    last one; 12 variables and 20 cone rows per step, the trailing step
-    repeats).  A scenario whose solution comes back non-finite keeps its
-    previously held GRFs (the reference's last solution stays applied), and
-    its warm start resets to zeros (a cold restart next solve)."""
+    ``riccati`` and ``admm_fast`` warm-start from the previous solve
+    shifted by one MPC step (receding horizon: block k of this solve aligns
+    with block k+1 of the last one; 12 variables and 20 cone rows per step,
+    the trailing step repeats), and a failed solve resets that warm start
+    to zeros (a cold restart next solve).  The parity solvers start cold
+    and leave the warm start alone.  A scenario whose solution comes back
+    non-finite keeps its previously held GRFs (the reference's last
+    solution stays applied)."""
     ground_z = None
     if mpc.ground_adaptive_height:
         # Support-plane height from stance-foot leg odometry; flight steps
@@ -111,29 +108,44 @@ def _solve_branch(robot, mpc, cmd, mpc_carry, ks, x_t, vel_des_world, table,
     )
 
     yaw = x_t[:, 2]
-    U_ws = torch.cat([mpc_carry.qp_primal[:, 12:], mpc_carry.qp_primal[:, -12:]], dim=-1)
-    lam_ws = torch.cat([mpc_carry.qp_dual[:, 20:], mpc_carry.qp_dual[:, -20:]], dim=-1)
-    if solver == "riccati":
-        # Sparse O(h) path: no condensing, Ad/Bd feed the Riccati-ADMM solve.
-        Ad, Bd = srb.discretize(*srb.state_space(robot, yaw, ks.pos_base_feet), mpc.dt_predict)
-        mv = cones.variable_mask(table, mpc)
-        U, lam = riccati.solve_batch(
-            Ad, Bd, x_t, X, table, robot.fz_max, mpc, riccati_cfg,
-            warm=(U_ws, lam_ws), return_duals=True,
-        )
+    feet = ks.pos_base_feet
+    if solver == "ipm_parity":
+        # Float64 condensing + the IPM's parity configuration, in float64.
+        H, H_lo, g, g_lo, mv = refmpc.build_qp_ff(robot, mpc, x_t, yaw, feet, X, table)
+        G, h_vec, _ = cones.block_constraints(table, robot.fz_max, mpc)
+        U = ipm.solve_batch(H, g, G, h_vec, ipm.PARITY_CONFIG, H_lo, g_lo)
+    elif solver in ("ipm", "admm"):
+        H, g, mv = refmpc.build_qp(robot, mpc, x_t, yaw, feet, X, table)
+        if solver == "ipm":
+            G, h_vec, _ = cones.block_constraints(table, robot.fz_max, mpc)
+            U = ipm.solve_batch(H, g, G, h_vec, ipm_cfg)
+        else:
+            A, l, u = admm.admm_constraints(table, robot.fz_max, mpc)
+            U = admm.solve_batch(H, g, A, l, u, admm_cfg)
     else:
-        H, g, mv = refmpc.build_qp(robot, mpc, x_t, yaw, ks.pos_base_feet, X, table)
-        U, lam = admm_fast.solve_batch(
-            H, g, table, robot.fz_max, mpc, admm_fast_cfg,
-            warm=(U_ws, lam_ws), return_duals=True,
+        U_ws = torch.cat([mpc_carry.qp_primal[:, 12:], mpc_carry.qp_primal[:, -12:]], dim=-1)
+        lam_ws = torch.cat([mpc_carry.qp_dual[:, 20:], mpc_carry.qp_dual[:, -20:]], dim=-1)
+        if solver == "riccati":
+            # Sparse O(h) path: no condensing, Ad/Bd feed the Riccati-ADMM solve.
+            Ad, Bd = srb.discretize(*srb.state_space(robot, yaw, feet), mpc.dt_predict)
+            mv = cones.variable_mask(table, mpc)
+            U, lam = riccati.solve_batch(
+                Ad, Bd, x_t, X, table, robot.fz_max, mpc, riccati_cfg,
+                warm=(U_ws, lam_ws), return_duals=True,
+            )
+        else:
+            H, g, mv = refmpc.build_qp(robot, mpc, x_t, yaw, feet, X, table)
+            U, lam = admm_fast.solve_batch(
+                H, g, table, robot.fz_max, mpc, admm_fast_cfg,
+                warm=(U_ws, lam_ws), return_duals=True,
+            )
+        ok_ws = (torch.isfinite(U).all(dim=-1, keepdim=True)
+                 & torch.isfinite(lam).all(dim=-1, keepdim=True))
+        mpc_carry = dataclasses.replace(
+            mpc_carry,
+            qp_primal=torch.where(ok_ws, U * mv, torch.zeros_like(U)),
+            qp_dual=torch.where(ok_ws, lam, torch.zeros_like(lam)),
         )
-    ok_ws = (torch.isfinite(U).all(dim=-1, keepdim=True)
-             & torch.isfinite(lam).all(dim=-1, keepdim=True))
-    mpc_carry = dataclasses.replace(
-        mpc_carry,
-        qp_primal=torch.where(ok_ws, U * mv, torch.zeros_like(U)),
-        qp_dual=torch.where(ok_ws, lam, torch.zeros_like(lam)),
-    )
     ok = torch.isfinite(U).all(dim=-1, keepdim=True)
     forces = torch.where(ok, (U * mv)[:, :12], mpc_carry.contact_forces)
     return dataclasses.replace(mpc_carry, contact_forces=forces), forces
@@ -167,6 +179,8 @@ def step_gated(
     tick,
     solve: bool,
     solver: str = DEFAULT_SOLVER,
+    ipm_cfg: ipm.IpmConfig = ipm.IpmConfig(),
+    admm_cfg: admm.AdmmConfig = admm.AdmmConfig(),
     admm_fast_cfg: admm_fast.AdmmFastConfig = admm_fast.AdmmFastConfig.inloop(),
     riccati_cfg: riccati.RiccatiConfig = riccati.RiccatiConfig.inloop(),
 ):
@@ -181,7 +195,7 @@ def step_gated(
     if solve:
         mpc_carry, forces = _solve_branch(
             robot, mpc, cmd, mpc_carry, ks, x_t, vel_des_world, table, solver,
-            admm_fast_cfg, riccati_cfg,
+            ipm_cfg, admm_cfg, admm_fast_cfg, riccati_cfg,
         )
     else:
         forces = mpc_carry.contact_forces
@@ -197,6 +211,8 @@ def step_batch(
     obs: kin.RobotObs,
     tick: int,
     solver: str = DEFAULT_SOLVER,
+    ipm_cfg: ipm.IpmConfig = ipm.IpmConfig(),
+    admm_cfg: admm.AdmmConfig = admm.AdmmConfig(),
     # In-loop presets: every solve after the first is warm-started from the
     # previous tick's shifted primal and duals.
     admm_fast_cfg: admm_fast.AdmmFastConfig = admm_fast.AdmmFastConfig.inloop(),
@@ -207,7 +223,7 @@ def step_batch(
     check_solver(solver)
     tick = int(tick)
     return step_gated(robot, mpc, gait, cmd, carry, obs, tick, is_solve_tick(mpc, tick),
-                      solver, admm_fast_cfg, riccati_cfg)
+                      solver, ipm_cfg, admm_cfg, admm_fast_cfg, riccati_cfg)
 
 
 def step(
@@ -219,11 +235,14 @@ def step(
     obs: kin.RobotObs,
     tick: int,
     solver: str = DEFAULT_SOLVER,
+    ipm_cfg: ipm.IpmConfig = ipm.IpmConfig(),
+    admm_cfg: admm.AdmmConfig = admm.AdmmConfig(),
 ):
     """Single-scenario tick (batch size 1 under the hood)."""
     add = lambda t: t[None]
     carry_b, out_b = step_batch(
         tree_map(add, robot), mpc, tree_map(add, gait), tree_map(add, cmd),
         tree_map(add, carry), tree_map(add, obs), tick, solver=solver,
+        ipm_cfg=ipm_cfg, admm_cfg=admm_cfg,
     )
     return tree_map(lambda t: t[0], carry_b), tree_map(lambda t: t[0], out_b)

@@ -7,8 +7,9 @@ axis.  Reproduced reference semantics as in the JAX module (ref
 base rotation, the first-run latch, +-0.1 m clamping of the desired x/y on
 solve ticks, the roll/pitch compensation integrators with dt_predict, and
 the X_ref rows with ``x[12] = -g``.  :func:`build_qp` is the condensed QP
-build of the default solver; ``build_qp_ff`` and ``solve_mpc`` serve the
-parity solvers and wait for them (ROADMAP Queue 1, item 9).
+build of the f32 solvers, :func:`build_qp_ff` the float64 build of the
+parity path (``solver="ipm_parity"``), and :func:`solve_mpc` a
+single-scenario condense-and-solve with the IPM or the plain ADMM.
 """
 from __future__ import annotations
 
@@ -22,7 +23,8 @@ from pympc_quadruped_tpu_torch.models.mpc import NUM_STATE, MpcParams
 from pympc_quadruped_tpu_torch.models.robots import RobotParams
 from pympc_quadruped_tpu_torch.ops import condense, srb
 from pympc_quadruped_tpu_torch.ops.kin import KinState
-from pympc_quadruped_tpu_torch.ops.qp import cones
+from pympc_quadruped_tpu_torch.ops.qp import admm, cones, ipm
+from pympc_quadruped_tpu_torch.tree import tree_map
 
 
 @dataclass
@@ -218,3 +220,57 @@ def build_qp(
     mv = cones.variable_mask(gait_table, mpc)
     H, g = cones.mask_cost(H, g, mv)
     return H, g, mv
+
+
+def build_qp_ff(
+    robot: RobotParams,
+    mpc: MpcParams,
+    x_t: torch.Tensor,            # (B,13)
+    yaw: torch.Tensor,            # (B,)
+    pos_base_feet: torch.Tensor,  # (B,4,3)
+    X_ref: torch.Tensor,          # (B,h,13) or (B,13h)
+    gait_table: torch.Tensor,     # (B,4h)
+):
+    """:func:`build_qp` with float64 condensing (``condense.condense_ff``):
+    returns (H, H_lo, g, g_lo, mv), where H + H_lo reproduces float64
+    condensing to ~1e-14 relative, as the parity IPM needs to meet the
+    BASELINE 1e-3 end-to-end GRF bar."""
+    Ac, Bc = srb.state_space(robot, yaw, pos_base_feet)
+    Ad, Bd = srb.discretize(Ac, Bc, mpc.dt_predict)
+    H_hi, H_lo, g_hi, g_lo = condense.condense_ff(Ad, Bd, x_t, X_ref, mpc)
+    mv = cones.variable_mask(gait_table, mpc)
+    # The 0/1 mask and the identity ridge are exact in f32, so both words
+    # are masked verbatim.
+    H_hi, g_hi = cones.mask_cost(H_hi, g_hi, mv)
+    H_lo = H_lo * mv[:, :, None] * mv[:, None, :]
+    return H_hi, H_lo, g_hi, g_lo * mv, mv
+
+
+def solve_mpc(
+    robot: RobotParams,
+    mpc: MpcParams,
+    x_t: torch.Tensor,            # (13,)
+    yaw: torch.Tensor,            # ()
+    pos_base_feet: torch.Tensor,  # (4,3)
+    X_ref: torch.Tensor,          # (h,13) or (13h,)
+    gait_table: torch.Tensor,     # (4h,)
+    solver: str = "ipm",
+    ipm_cfg: ipm.IpmConfig = ipm.IpmConfig(),
+    admm_cfg: admm.AdmmConfig = admm.AdmmConfig(),
+) -> torch.Tensor:
+    """Single-scenario condensed solve with ``solver`` ``"ipm"`` or
+    ``"admm"`` -> (12,) first-step GRFs.  ``robot`` is unbatched; for
+    batches use ``engine.solve_scenarios``."""
+    if solver not in ("ipm", "admm"):
+        raise ValueError(f"unknown solver {solver!r}")
+    add = lambda t: t[None]
+    robot_b = tree_map(add, robot)
+    H, g, mv = build_qp(robot_b, mpc, x_t[None], yaw.reshape(1), pos_base_feet[None],
+                        X_ref.reshape(1, -1), gait_table[None])
+    if solver == "ipm":
+        G, h_vec, _ = cones.block_constraints(gait_table[None], robot_b.fz_max, mpc)
+        U = ipm.solve_batch(H, g, G, h_vec, ipm_cfg)
+    else:
+        A, l, u = admm.admm_constraints(gait_table[None], robot_b.fz_max, mpc)
+        U = admm.solve_batch(H, g, A, l, u, admm_cfg)
+    return (U * mv)[0, :12]  # exact zeros on swing legs

@@ -12,7 +12,9 @@ ints/bools; every other leaf keeps its dtype (float32, int32, bool).
 The nested carries have functions of their own: ``ControllerCarry``, and the
 rollouts' estimator-mode full carries, ``(controller_carry, kf_state,
 held_forces)`` of ``srb_env`` and ``(controller_carry, kf_state, vworld,
-f_feet)`` of ``fullorder``.
+f_feet)`` of ``fullorder``.  The solver configs (``NamedTuple``s of Python
+numbers) come from the JAX config's ``_asdict()``: :func:`admm_config`
+and :func:`ipm_config`.
 """
 from __future__ import annotations
 
@@ -34,6 +36,8 @@ from pympc_quadruped_tpu_torch.models.gaits import GaitParams
 from pympc_quadruped_tpu_torch.models.mpc import MpcParams
 from pympc_quadruped_tpu_torch.models.robots import RobotParams
 from pympc_quadruped_tpu_torch.ops.kin import RobotObs
+from pympc_quadruped_tpu_torch.ops.qp.admm import AdmmConfig
+from pympc_quadruped_tpu_torch.ops.qp.ipm import IpmConfig
 from pympc_quadruped_tpu_torch.ops.rbd import RbdModel
 
 # Fields that are static Python values in both packages.
@@ -97,3 +101,13 @@ def full_carry(arrays, device="cuda"):
     c, k, *rest = arrays
     return (controller_carry(c, device), kf_state(k, device),
             *(torch.from_numpy(np.array(a, copy=True)).to(device) for a in rest))
+
+
+def admm_config(values: dict) -> AdmmConfig:
+    """The plain ADMM's config from the JAX ``AdmmConfig._asdict()``."""
+    return AdmmConfig(**values)
+
+
+def ipm_config(values: dict) -> IpmConfig:
+    """The IPM's config from the JAX ``IpmConfig._asdict()``."""
+    return IpmConfig(**values)

@@ -471,8 +471,8 @@ def rollout(
     - ``substeps``: the physics steps ``substeps`` times at
       dt/substeps under the held torque, and reports the mean force;
     - ``tick0``: the absolute tick of the first tick (chunked runs);
-    - ``solver_cfg``: ``admm_fast_cfg`` / ``riccati_cfg`` for
-      :func:`controller.step_gated`.
+    - ``solver_cfg``: ``ipm_cfg`` / ``admm_cfg`` / ``admm_fast_cfg`` /
+      ``riccati_cfg`` for :func:`controller.step_gated`.
 
     Returns ``((final_state, final_carry), metrics)``: the controller carry
     (or, with ``return_full_carry``, the full loop carry of

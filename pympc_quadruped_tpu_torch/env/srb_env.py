@@ -421,7 +421,8 @@ def rollout(
     :func:`init_full_carry` structure) as ``carry_in`` and the absolute
     starting tick as ``tick0``.  ``cmd_ramp_ticks`` ramps the command in
     from standstill (:meth:`Command.ramped`); ``solver_cfg`` is a dict of
-    ``admm_fast_cfg`` / ``riccati_cfg`` for :func:`controller.step_gated`.
+    ``ipm_cfg`` / ``admm_cfg`` / ``admm_fast_cfg`` / ``riccati_cfg`` for
+    :func:`controller.step_gated`.
 
     On a CUDA device the non-solve ticks replay one captured CUDA graph
     (:class:`RolloutLoop`); a capture or replay failure raises."""

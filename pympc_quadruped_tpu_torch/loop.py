@@ -13,7 +13,8 @@ from pympc_quadruped_tpu_torch.env import srb_env
 def run_ticks(robot, mpc, gait, cmd, carry, state, tick0: int, n_ticks: int,
               solver: str = ctrl.DEFAULT_SOLVER):
     """Advance ``n_ticks`` ticks from the absolute tick ``tick0`` with the
-    controller's ``solver`` (``"admm_fast"``, the default, or ``"riccati"``).
+    controller's ``solver`` (any of ``controller.SOLVERS``; ``"admm_fast"``
+    by default).
 
     Returns (carry, state, out): the controller carry and SRB state after
     the last tick, and that tick's ``ControllerOutput``."""

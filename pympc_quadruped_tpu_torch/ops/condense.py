@@ -8,8 +8,9 @@ Port of ``ops/condense.py`` (``rollout_matrices``, ``qp_cost``,
 
 The (13h x 12h)^T (13h x 12h) Gram product is a plain batched matrix
 product, left to ``torch.matmul`` as the JAX package leaves it to XLA; the
-package-wide TF32-off pin keeps it in full f32.  ``qp_cost_toeplitz`` and
-``condense_ff`` are not ported (ROADMAP Queue 1, items 8 and 9).
+package-wide TF32-off pin keeps it in full f32.  :func:`condense_ff` is the
+parity path's condensing, in float64.  ``qp_cost_toeplitz`` is not ported
+(ROADMAP Queue 1, item 13).
 """
 from __future__ import annotations
 
@@ -63,3 +64,30 @@ def condense(Ad, Bd, x_t, X_ref, mpc: MpcParams):
     """Full condensing, batched: X_ref (B,h,13) or (B,13h)."""
     Sx, Su = rollout_matrices(Ad, Bd, mpc.horizon)
     return qp_cost(Sx, Su, x_t, X_ref.reshape(x_t.shape[0], -1), mpc)
+
+
+def condense_ff(Ad, Bd, x_t, X_ref, mpc: MpcParams):
+    """Condensing in float64 for the reference-parity path, batched.
+
+    Plain f32 condensing rounds H by ~1e-7 relative, and that rounding
+    lands in the reduced Hessian's weak subspace (lambda_min ~ 2R = 4e-5)
+    and moves the QP optimum by ~1e-1 N.  Here the f32 ``Ad``/``Bd``/
+    ``x_t``/``X_ref`` and cost weights are condensed in float64 (the JAX
+    package does it in float-float, a TPU having no float64) as
+    ``H = Su^T Qbar Su + (Su^T Qbar Su)^T + 2 Rbar``.
+
+    Returns the same four f32 words as the JAX function, (H_hi, H_lo,
+    g_hi, g_lo), with hi the f32 rounding of the f64 value and lo the f32
+    rounding of the remainder; feed the lo words to the parity IPM
+    (``ipm.solve_batch(..., H_lo, g_lo)``)."""
+    h = mpc.horizon
+    B = x_t.shape[0]
+    Sx, Su = rollout_matrices(Ad.double(), Bd.double(), h)
+    q_bar = mpc.q_diag.double().repeat(h)                      # (13h,)
+    r_bar = mpc.r_diag.double().repeat(h)                      # (12h,)
+    Ht = Su.transpose(-1, -2) @ (q_bar[:, None] * Su)
+    H = Ht + Ht.transpose(-1, -2) + 2.0 * torch.diag(r_bar)
+    resid = (Sx @ x_t.double()[..., None])[..., 0] - X_ref.reshape(B, -1).double()
+    g = 2.0 * (Su.transpose(-1, -2) @ (q_bar * resid)[..., None])[..., 0]
+    H_hi, g_hi = H.float(), g.float()
+    return H_hi, (H - H_hi.double()).float(), g_hi, (g - g_hi.double()).float()

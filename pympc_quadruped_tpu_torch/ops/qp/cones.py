@@ -6,8 +6,9 @@ Every (step, leg) block owns a 3-vector of forces constrained by
 legs are pinned instead of constrained: their cost becomes an identity
 quadratic with zero gradient (optimum exactly 0) and their cone rows the
 trivially inactive ``0 <= 1``, so shapes stay static whatever legs swing.
-The per-block ``block_matvec``/``block_normal_matrix`` helpers serve only
-the IPM and wait for it (ROADMAP Queue 1, item 9).
+The per-block products :func:`block_matvec`, :func:`block_rmatvec` and
+:func:`block_normal_matrix` serve the IPM (:mod:`.ipm`) and the plain ADMM
+(:mod:`.admm`), whose constraint rows keep the same per-block layout.
 """
 from __future__ import annotations
 
@@ -59,3 +60,32 @@ def mask_cost(H: torch.Tensor, g: torch.Tensor, mv: torch.Tensor):
     reference's (swing f = 0)."""
     Hm = H * mv[:, :, None] * mv[:, None, :] + torch.diag_embed(1.0 - mv)
     return Hm, g * mv
+
+
+def block_matvec(G: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """G @ x by blocks: G (B,h,4,r,3), x (B,12h) -> (B,h,4,r)."""
+    h = G.shape[-4]
+    xb = x.reshape(x.shape[:-1] + (h, 4, 3))
+    return torch.einsum("...hlrc,...hlc->...hlr", G, xb)
+
+
+def block_rmatvec(G: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """G^T @ y by blocks: y (B,h,4,r) -> (B,12h)."""
+    out = torch.einsum("...hlrc,...hlr->...hlc", G, y)
+    return out.reshape(out.shape[:-3] + (-1,))
+
+
+def block_normal_matrix(G: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """G^T diag(d) G as a dense (B,12h,12h) block-diagonal matrix, for row
+    weights d (B,h,4,r).  The 3x3 blocks sit on the diagonal of a
+    (B, 4h, 4h, 3, 3) block array, which is permuted to (B, 4h, 3, 4h, 3)
+    before the reshape, so each block keeps its orientation."""
+    blocks = torch.einsum("...hlrc,...hlr,...hlrd->...hlcd", G, d, G)   # (B,h,4,3,3)
+    lead = blocks.shape[:-4]
+    n_blk = blocks.shape[-4] * 4
+    flat = blocks.reshape(lead + (n_blk, 1, 3, 3))
+    on_diag = torch.eye(n_blk, dtype=torch.bool, device=G.device)[..., None, None]
+    out = torch.where(on_diag, flat, torch.zeros((), dtype=G.dtype, device=G.device))
+    nd = len(lead)
+    out = out.permute(*range(nd), nd, nd + 2, nd + 1, nd + 3)
+    return out.reshape(lead + (3 * n_blk, 3 * n_blk))

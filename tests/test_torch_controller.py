@@ -168,9 +168,10 @@ def test_single_scenario_step_matches_jax():
                                atol=TOL["torques"])
 
 
-@pytest.mark.parametrize("solver", ["admm", "ipm", "ipm_parity"])
-def test_unported_controller_solvers_raise(solver):
-    """The default solver is ported; the parity solvers name the ROADMAP item."""
-    controller.check_solver(controller.DEFAULT_SOLVER)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+def test_unknown_solver_raises():
+    """Every solver name of the JAX controller is accepted; any other name
+    raises ``ValueError``."""
+    for solver in ("admm_fast", "riccati", "admm", "ipm", "ipm_parity"):
         controller.check_solver(solver)
+    with pytest.raises(ValueError, match="unknown solver"):
+        controller.check_solver("osqp")

@@ -12,11 +12,14 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (INV_RATIO_BAR, closed_loop_setup, condensed_problem,
+from chip_smoke import (B_MAIN, CONE_SHARE, INV_RATIO_BAR, PARITY_COST_BAR, PARITY_GRF_BAR,
+                        closed_loop_setup, condensed_problem, cone_violation, engine_inputs,
+                        f64_cost,
                         fullorder_graph_and_eager, fullorder_setup, invariants_ok,
-                        inverse_residual, qp_invariants, random_problem)
+                        inverse_residual, parity_routes, qp_invariants, random_problem)
 from pympc_quadruped_tpu_torch import tree
 from pympc_quadruped_tpu_torch.control import controller as ctrl
+from pympc_quadruped_tpu_torch.control import refmpc
 from pympc_quadruped_tpu_torch.env import fullorder, srb_env, terrain
 from pympc_quadruped_tpu_torch.estimation import kf
 from pympc_quadruped_tpu_torch.loop import run_ticks
@@ -248,3 +251,66 @@ def test_cuda_fullorder_estimator_terrain_substeps_graph_equals_eager(cuda_devic
     for k in m_g:
         _assert_bitwise(m_g[k], m_e[k])
     assert float(m_g["est_pos_err"].max()) > 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["admm_ref", "ipm", "parity"])
+def test_cuda_parity_routes_match_cpu(cuda_device, route):
+    """chip_smoke phase 12a's routes on 16 of its scenarios (h=16) on the
+    card against the same calls on the CPU: finite, swing forces exactly 0,
+    cone rows within 1e-3 fz_max; the parity route's first-step GRFs within
+    the phase's bar of the CPU's in every scenario, the f32 routes' f64
+    costs within the phase's cost bar of the CPU's."""
+    B = 16
+    mpc, robot, inputs = engine_inputs(cuda_device, B)
+    U = parity_routes(mpc, robot, inputs)[route]()
+    cpu = torch.device("cpu")
+    mpc_c, robot_c = tree.to(mpc, cpu), tree.tile(aliengo(device=cpu), B)
+    inputs_c = tuple(t.cpu() for t in inputs)
+    U_c = parity_routes(mpc_c, robot_c, inputs_c)[route]()
+    U = U.cpu()
+    assert bool(torch.isfinite(U).all())
+    mv = inputs_c[4].repeat_interleave(3, dim=-1)
+    assert bool((U[mv == 0] == 0).all())
+    assert float(cone_violation(U, inputs_c[4], robot_c.fz_max, mpc_c).max()) \
+        <= CONE_SHARE * float(robot_c.fz_max.max())
+    if route == "parity":
+        first = ((U - U_c).abs() / (1.0 + U_c.abs()))[:, :12].amax(-1)
+        assert float(first.max()) < PARITY_GRF_BAR
+        return
+    H, g, _ = refmpc.build_qp(robot_c, mpc_c, *inputs_c)
+    c, c_c = (f64_cost(H.double(), g.double(), V) for V in (U, U_c))
+    assert float(((c - c_c).abs() / (c_c.abs() + 1.0)).max()) < PARITY_COST_BAR
+
+
+#: Phase 12a scenarios whose parity solution once moved with the batch it was
+#: solved in on the card (198: alone 8.7e-3 from its B=4096 answer) or sat
+#: far from the CPU's (530, 941, 3025), while the parity solve ran its first
+#: iterations in float32 (tools/parity_batch_probe.jsonl); and scenario 0.
+PARITY_PROBE_SCENARIOS = (0, 198, 530, 941, 3025)
+
+
+@pytest.mark.cuda
+def test_cuda_parity_independent_of_batch(cuda_device):
+    """The parity pipeline on the card solves each of PARITY_PROBE_SCENARIOS
+    alone (B=1), together, and inside phase 12a's B=4096 batch; the
+    first-step GRFs agree within tests/test_qp.py's 1e-3 of (1 + |U|), and
+    with the same scenario solved alone on the CPU."""
+    mpc, robot, inputs = engine_inputs(cuda_device, B_MAIN)
+    U_all = parity_routes(mpc, robot, inputs)["parity"]()
+    idx = torch.tensor(PARITY_PROBE_SCENARIOS, device=cuda_device)
+    sub = tuple(t[idx] for t in inputs)
+    U_sub = parity_routes(mpc, tree.tile(aliengo(device=cuda_device), len(idx)), sub)["parity"]()
+    robot_1 = tree.tile(aliengo(device=cuda_device), 1)
+    U_one = torch.cat([parity_routes(mpc, robot_1, tuple(t[i:i + 1] for t in sub))["parity"]()
+                       for i in range(len(idx))])
+    cpu = torch.device("cpu")
+    mpc_c, robot_c = tree.to(mpc, cpu), tree.tile(aliengo(device=cpu), 1)
+    U_cpu = torch.cat([parity_routes(mpc_c, robot_c, tuple(t[i:i + 1].cpu() for t in sub))
+                       ["parity"]() for i in range(len(idx))])
+    rel = lambda a, b: float(((a.cpu().double() - b.cpu().double()).abs()
+                              / (1.0 + b.cpu().double().abs()))[:, :12].max())
+    assert bool(torch.isfinite(U_all).all())
+    assert rel(U_all[idx], U_one) < 1e-3
+    assert rel(U_sub, U_one) < 1e-3
+    assert rel(U_one, U_cpu) < 1e-3

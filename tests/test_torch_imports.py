@@ -5,7 +5,8 @@ may import ``jax`` or the JAX package, directly or through another module.
 A fresh interpreter with ``sys.modules["jax"]`` and
 ``sys.modules["pympc_quadruped_tpu"]`` set to ``None`` (any import of them
 then raises ``ImportError``) imports every module of the port and
-``chip_smoke``.
+``chip_smoke``; among them the parity solvers' ``ops.qp.admm`` and
+``ops.qp.ipm`` and ``utils.profiling``.
 """
 import os
 import subprocess
@@ -25,6 +26,8 @@ for name in names + ["chip_smoke"]:
 leaked = sorted(n for n, m in sys.modules.items() if m is not None and (
     n.split(".")[0] in ("jax", "jaxlib", "pympc_quadruped_tpu")))
 assert not leaked, leaked
+for name in ("ops.qp.admm", "ops.qp.ipm", "utils.profiling"):
+    assert port.__name__ + "." + name in names, name
 print(len(names))
 """
 

@@ -238,15 +238,6 @@ def test_engine_warm_duals_roundtrip():
     assert _gap(H64, g64, U_warm[0].numpy().astype(np.float64), U_star) < 1e-5
 
 
-@pytest.mark.parametrize("solver", ["admm_ref", "ipm"])
-def test_unported_solvers_raise(solver):
-    mpc_j, robot_j, arrays, *_ = _engine_inputs(0, "trotting16")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        engine.solve_scenarios(convert.robot_params(convert.as_arrays(robot_j), device="cpu"),
-                               convert.mpc_params(convert.as_arrays(mpc_j), device="cpu"),
-                               *map(torch.tensor, arrays), solver=solver)
-
-
 def test_wrapper_rejects_bad_operands():
     _, p = _case("cold")
     Ad, *rest = p["args"]
