@@ -8,9 +8,11 @@ result):
 1. device and build: a CUDA card, its name and power limit, every kernel
    built from ``pympc_quadruped_tpu_torch/csrc`` (one nvcc per source, in
    parallel) with its ptxas report, the Riccati and invert kernels'
-   resident scenarios per SM and shared memory per block, and the iterate
+   resident scenarios per SM and shared memory per block, the iterate
    kernel's launch at B=4096 (threads, persistent blocks, shared memory)
-   with its entry's ptxas line, which must show no spills;
+   and the fused and full kernels' (threads, resident blocks, shared
+   memory, workspace floats), each with its entry's ptxas line, which must
+   show no spills for the iterate kernel;
 2. Riccati kernel vs plain: the Riccati-ADMM kernel against its plain
    PyTorch version on the same random h=16 problems, at B=4096 and at a
    ragged B=130: cold, warm-started, and with per-scenario rho;
@@ -25,7 +27,9 @@ result):
    port's ``build_qp`` at h=16 (B=4096 and B=130) and at phase 11b's h=10
    (B=4096), cold and warm-started:
    the invert kernel's f64 residual max|Kinv K - I| within 2x of the plain
-   ``spd_inverse``'s, and the ``pallas``, ``pallas_split``,
+   ``spd_inverse``'s; the fused kernel's scaled (x, y) bit for bit the
+   split path's (invert, then iterate) on the same operands; and the
+   ``pallas``, ``pallas_split``,
    ``pallas_fused`` and ``pallas_full`` backends against ``jnp`` with the
    JAX bench's batch kernel gate (bench.py:463-545), per scenario: f64 cost
    no more than 2e-5 above the plain solution's, cone rows within 1e-3
@@ -540,6 +544,19 @@ def phase_condensed_vs_plain(dev):
         check(r_k <= INV_RATIO_BAR * r_p, f"h={h} B={B}: invert_spd residual above the bar")
         for case, w, cfg in (("cold", None, admm_fast.AdmmFastConfig()),
                              ("warm", p.warm, admm_fast.AdmmFastConfig.inloop())):
+            # The fused kernel runs the invert kernel's inverse and the
+            # iterate kernel's summation order: its (x, y) are the split's.
+            kkt = admm_fast.setup(*args, cfg, invert=False)
+            P0 = admm_fast.cone_pattern(p.mpc.friction_coef, h)
+            init = None if w is None else admm_fast.warm_init(kkt, P0, w)
+            fused = admm_cuda.iterate_fused(kkt, P0, cfg, init)
+            split = admm_cuda.invert_iterate(kkt, P0, cfg, init)
+            torch.cuda.synchronize()
+            differ = [int((a != b).sum()) for a, b in zip(fused, split)]
+            print(f"phase 5: h={h} B={B} {case} iterate_fused against invert_spd + iterate: "
+                  f"{differ[0]} of x and {differ[1]} of y differ (bar: bitwise equal)", flush=True)
+            check(all(torch.equal(a, b) for a, b in zip(fused, split)),
+                  f"h={h} B={B} {case}: the fused kernel differs from the split path")
             U_p = admm_fast.solve_batch(*args, cfg, backend="jnp", warm=w)
             cone_p = p99_max(qp_invariants(p, U_p, U_p)["cone"])
             fz_max = float(p.robot.fz_max.max())
@@ -1371,6 +1388,16 @@ def main() -> int:
           flush=True)
     check(" 0 bytes spill stores, 0 bytes spill loads" in ptxas.split(";")[0],
           "admm_iterate_kernel: Kinv does not stay in registers (ptxas reports spills)")
+    # The fused and full kernels' spills are printed, not gated: at 512
+    # threads (128 registers a thread) ptxas spills a few values of each
+    # entry in every layout measured (PERF.md section 6).
+    for kernel in ("fused", "full"):
+        c = admm_cuda.fused_config(libs["admm_fused"].lib, kernel, n, 5 * n // 3)
+        ptxas = entry_report(libs["admm_fused"].log, f"admm_{kernel}_kernel")
+        print(f"phase 1: admm_{kernel}_kernel at h={HORIZON}: {c['threads']} threads a block, "
+              f"{c['blocks_per_sm']} blocks (scenarios) resident per SM, {c['smem_per_block']} B "
+              f"of dynamic shared memory per block, {c['workspace_floats']} workspace floats per "
+              f"scenario; ptxas: {ptxas}", flush=True)
 
     max_err = phase_kernel_vs_plain(dev)
     ric_launches, loop_state = phase_closed_loop(dev, "riccati", 3)
@@ -1422,7 +1449,7 @@ def main() -> int:
         launches = (rollout_launches[name] if on_loop else
                     backend_launches["pallas_fused" if name == "iterate_fused"
                                      else "pallas_full"][name])
-        source = "admm_iterate.cu" if name == "iterate" else "admm.cu"
+        source = {"invert_spd": "admm.cu", "iterate": "admm_iterate.cu"}.get(name, "admm_fused.cu")
         kernels.append({
             "name": name, "route": "cuda", "source": f"pympc_quadruped_tpu_torch/csrc/{source}",
             "replaces": f"pympc_quadruped_tpu/ops/qp/admm_pallas.py:{replaces[name]}",

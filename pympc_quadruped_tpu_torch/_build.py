@@ -43,6 +43,7 @@ SIGNATURES = {
     "admm_iterate_config": ([_I] * 3 + [_P], _I),
     "admm_fused_launch": ([_P] * 14 + [_I] * 4 + [_F] * 2 + [_I, _P], _I),
     "admm_full_launch": ([_P] * 11 + [_I] * 4 + [_F] * 2 + [_I] * 2 + [_F] * 2 + [_P], _I),
+    "admm_fused_config": ([_I] * 3 + [_P], _I),
 }
 
 

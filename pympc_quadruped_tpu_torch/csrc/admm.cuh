@@ -1,18 +1,19 @@
 // Per-scenario arithmetic of the condensed ADMM kernels (admm.cu,
-// admm_iterate.cu).
+// admm_iterate.cu, admm_fused.cu).
 //
 // One thread block solves one scenario at a time: its NL threads ("lanes")
 // share the scenario's matrices and split every loop as `for (e = lane; e <
 // N; e += NL)`, with Team::sync() as the barrier between dependent steps.
 // The code is plain C++ marked __host__ __device__: the CUDA kernels
-// instantiate it with NL = 512 (invert), 384 (iterate, n <= REG_N) or 256
-// (the others) and __syncthreads(); admm_host.cpp instantiates it with NL =
-// 1 and a no-op barrier, so a host compiler runs the same arithmetic on the
-// CPU.  Each output element of a matrix product is one lane's fmaf chain
-// over k in increasing order, so the result does not depend on NL or on how
-// a product is tiled.  The sweeps' product xt = Kinv rhs has one summation
-// order of its own (row_times), which the iterate kernel's warps compute
-// with Kinv split over their lanes' registers.
+// instantiate it with NL = 512 (invert, fused, full), 384 (iterate, n <=
+// REG_N) or 256 (iterate, n > REG_N) and __syncthreads(); admm_host.cpp
+// instantiates it with NL = 1 and a no-op barrier, so a host compiler runs
+// the same arithmetic on the CPU.  Each output element of a matrix product
+// is one lane's fmaf chain over k in increasing order, so the result does
+// not depend on NL or on how a product is tiled.  The sweeps' product xt =
+// Kinv rhs has one summation order of its own (row_times), which the
+// iterate, fused and full kernels' warps compute with Kinv split over
+// their lanes' registers (16-row tiles in 12 warps, 12-row tiles in 16).
 //
 // Math (JAX package, pympc_quadruped_tpu/ops/qp/admm_pallas.py, and the
 // port's plain versions in pympc_quadruped_tpu_torch/ops/qp/admm_fast.py):
@@ -77,6 +78,19 @@ constexpr int RES_ROWS = 16;
 constexpr int RES_COLS = 6;
 constexpr int REG_N = RES_THREADS / 32 * RES_ROWS;   // 192, h = 16
 static_assert(REG_N == 32 * RES_COLS, "the register tile must be square");
+
+// The fused and full kernels run FUSED_THREADS lanes (16 warps), the
+// invert kernel's count; at n <= REG_N their sweeps hold Kinv in registers
+// as the iterate kernel does, in tiles of FUSED_ROWS rows, of which each
+// lane keeps FUSED_REG_ROWS in registers (48 floats) and reads the rest
+// from Kinv in shared memory every sweep.  A thread of a 512-thread block
+// gets 128 registers: with all 72 floats of its tile in them beside the
+// cone step, ptxas spilled 16-20 of them, reloaded every sweep, and the
+// sweeps took longer (PERF.md).
+constexpr int FUSED_THREADS = 512;
+constexpr int FUSED_ROWS = 12;
+constexpr int FUSED_REG_ROWS = 8;
+static_assert(FUSED_THREADS / 32 * FUSED_ROWS == REG_N, "16 warps of 12 rows");
 
 __host__ __device__ inline bool in_registers(int n) { return n <= REG_N; }
 
@@ -596,43 +610,34 @@ __host__ __device__ void symmetrize_to(const Team<NL>& t, const float* R, int ld
     }
 }
 
-// dst = spd_inverse(K): X = sym(K), the in-place recursion on X, then
-// ns_iters Newton-Schulz steps X <- sym(X (2I - K X)) with the
-// unsymmetrized K, by column panels J of PANEL columns:
-//   T = 2I[:, J] - K X[:, J]   (the panel buffer T, n x PANEL)
-//   R[:, J] = X T              (R: n x n, ld ldr, not X: X is read whole
-//                               by every panel)
-// and then sym(R) into X (between steps) or dst (after the last).  X has
-// ld n + 1; dst may be X (ld n + 1), or R itself.  With ns_iters = 0, X
-// is copied to dst.  The panel products run as gemm_panel in a block of
-// 512 lanes (the invert kernel) and as the staged gemm with fewer.
-template <int NL, bool OnChip>
-__host__ __device__ ADMM_NOINLINE void spd_inverse(const Team<NL>& t, const float* K, int ldk,
-                                                   int n, int ns_iters, float* X, float* T,
-                                                   float* R, int ldr, float* dst, int ldd,
-                                                   float* smem) {
-  const int ldx = n + 1;
-  // K to X row by row, many 16-byte loads in flight per lane (n = 12h and
-  // ldk = n keep K's rows 16-byte aligned), then X = sym(X) in place.
-  {
-    constexpr int QB = 6;                        // float4 loads in flight per lane
-    const int q4 = n / 4, nq = n * q4;           // float4s of a row, of K
-    for (int e0 = t.lane; e0 < nq; e0 += NL * QB) {
-      float v[QB][4];
+// dst (ld ldd) <- an n x n matrix (ld lds) row by row, many 16-byte loads
+// in flight per lane (n = 12h and lds = n keep the source's rows 16-byte
+// aligned).  No barrier.
+template <int NL>
+__host__ __device__ inline void load_rows(const Team<NL>& t, const float* src, int lds, int n,
+                                          float* dst, int ldd) {
+  constexpr int QB = 6;                        // float4 loads in flight per lane
+  const int q4 = n / 4, nq = n * q4;           // float4s of a row, of the matrix
+  for (int e0 = t.lane; e0 < nq; e0 += NL * QB) {
+    float v[QB][4];
 #pragma unroll
-      for (int u = 0; u < QB; ++u) {
-        const int e = e0 + NL * u;
-        if (e < nq) load4(K + (long long)(e / q4) * ldk + 4 * (e % q4), v[u]);
-      }
+    for (int u = 0; u < QB; ++u) {
+      const int e = e0 + NL * u;
+      if (e < nq) load4(src + (long long)(e / q4) * lds + 4 * (e % q4), v[u]);
+    }
 #pragma unroll
-      for (int u = 0; u < QB; ++u) {
-        const int e = e0 + NL * u;
-        if (e < nq)
-          for (int c = 0; c < 4; ++c) X[(long long)(e / q4) * ldx + 4 * (e % q4) + c] = v[u][c];
-      }
+    for (int u = 0; u < QB; ++u) {
+      const int e = e0 + NL * u;
+      if (e < nq)
+        for (int c = 0; c < 4; ++c) dst[(long long)(e / q4) * ldd + 4 * (e % q4) + c] = v[u][c];
     }
   }
-  t.sync();
+}
+
+// X = sym(X) in place, X n x n with ld n + 1.
+template <int NL>
+__host__ __device__ inline void symmetrize_x(const Team<NL>& t, float* X, int n) {
+  const int ldx = n + 1;
   for (int e = t.lane; e < n * n; e += NL) {
     const int i = e / n, j = e % n;
     if (i <= j) {
@@ -642,6 +647,25 @@ __host__ __device__ ADMM_NOINLINE void spd_inverse(const Team<NL>& t, const floa
     }
   }
   t.sync();
+}
+
+// dst = spd_inverse(K) from X = sym(K) (ld n + 1, loaded by the caller):
+// the in-place recursion on X, then ns_iters Newton-Schulz steps X <-
+// sym(X (2I - K X)) with the unsymmetrized K, by column panels J of PANEL
+// columns:
+//   T = 2I[:, J] - K X[:, J]   (the panel buffer T, n x PANEL)
+//   R[:, J] = X T              (R: n x n, ld ldr, not X: X is read whole
+//                               by every panel)
+// and then sym(R) into X (between steps) or dst (after the last).  dst may
+// be X (ld n + 1), or R itself.  With ns_iters = 0, X is copied to dst.
+// The panel products run as gemm_panel in a block of 512 lanes (the
+// invert, fused and full kernels) and as the staged gemm with fewer.
+template <int NL, bool OnChip>
+__host__ __device__ ADMM_NOINLINE void invert_in_place(const Team<NL>& t, const float* K,
+                                                       int ldk, int n, int ns_iters, float* X,
+                                                       float* T, float* R, int ldr, float* dst,
+                                                       int ldd, float* smem) {
+  const int ldx = n + 1;
   schur_inverse<NL, OnChip>(t, X, ldx, n, smem);
   if (ns_iters == 0 && dst != X) {
     for (int e = t.lane; e < n * n; e += NL)
@@ -667,6 +691,19 @@ __host__ __device__ ADMM_NOINLINE void spd_inverse(const Team<NL>& t, const floa
     if (it + 1 < ns_iters) symmetrize_to(t, R, ldr, X, ldx, n, smem);
     else symmetrize_to(t, R, ldr, dst, ldd, n, smem);
   }
+}
+
+// dst = spd_inverse(K) (K ld ldk): K to X, X = sym(X), then
+// invert_in_place.
+template <int NL, bool OnChip>
+__host__ __device__ ADMM_NOINLINE void spd_inverse(const Team<NL>& t, const float* K, int ldk,
+                                                   int n, int ns_iters, float* X, float* T,
+                                                   float* R, int ldr, float* dst, int ldd,
+                                                   float* smem) {
+  load_rows(t, K, ldk, n, X, n + 1);
+  t.sync();
+  symmetrize_x(t, X, n);
+  invert_in_place<NL, OnChip>(t, K, ldk, n, ns_iters, X, T, R, ldr, dst, ldd, smem);
 }
 
 // Row r of one pyramid block times a 3-vector s, in the summation order of
@@ -765,7 +802,7 @@ __host__ __device__ inline void block_update(const Vecs& v, int b, float mu, flo
 // The one summation order of xt[i] = row . rhs in every sweep: 32 partial
 // fmaf chains p_j over k = j, j + 32, ... < n in increasing k, then the
 // pairwise tree p[j] += p[j + s] for s = 16, 8, 4, 2, 1.  admm_iterations
-// computes it a row a lane; the iterate kernel's register path computes
+// computes it a row a lane; the register paths (register_sweeps) compute
 // p_j on lane j of a warp and the tree with shuffles (tile_chains,
 // tree_rows), so the bits do not depend on the lane count or on the rows a
 // warp holds.
@@ -828,9 +865,12 @@ __host__ __device__ inline IterArgs scenario_args(const IterArgs& a, long long s
                   a.x0 + sn, a.z0 + sm, a.y0 + sm, a.x + sn, a.y + sm};
 }
 
+// The vectors to the sweeps' buffers, a lane an element; no barrier.  This
+// copy and store_iter_result stay out of line: inlined in the fused
+// kernel, their operands were kept across its sweeps and spilled.
 template <int NL>
-__host__ __device__ void load_iter_vectors(const Team<NL>& t, const IterArgs& a, int n,
-                                           int m, const Vecs& v) {
+__host__ __device__ ADMM_NOINLINE void load_iter_vectors(const Team<NL>& t, const IterArgs& a,
+                                                         int n, int m, const Vecs& v) {
   for (int i = t.lane; i < n; i += NL) {
     v.q[i] = a.q[i]; v.d[i] = a.d[i]; v.x[i] = a.x0[i];
   }
@@ -838,12 +878,11 @@ __host__ __device__ void load_iter_vectors(const Team<NL>& t, const IterArgs& a,
     v.es[i] = a.es[i]; v.rho[i] = a.rho[i]; v.lo[i] = a.lo[i]; v.hi[i] = a.hi[i];
     v.z[i] = a.z0[i]; v.y[i] = a.y0[i];
   }
-  t.sync();
 }
 
 template <int NL>
-__host__ __device__ void store_iter_result(const Team<NL>& t, const IterArgs& a, int n,
-                                           int m, const Vecs& v) {
+__host__ __device__ ADMM_NOINLINE void store_iter_result(const Team<NL>& t, const IterArgs& a,
+                                                         int n, int m, const Vecs& v) {
   for (int i = t.lane; i < n; i += NL) a.x[i] = v.x[i];
   for (int i = t.lane; i < m; i += NL) a.y[i] = v.y[i];
 }
@@ -866,6 +905,7 @@ __host__ __device__ void iterate_one(const Team<NL>& t, const float* Kinv, float
     ldk = n + 1;
   }
   load_iter_vectors(t, a, n, m, v);
+  t.sync();
   admm_iterations(t, Kv, ldk, n, mu, v, iterations, sigma, alpha);
   store_iter_result(t, a, n, m, v);
 }
@@ -980,62 +1020,140 @@ __host__ __device__ inline float shfl_xor(float v, int mask) {
 #endif
 }
 
-// A warp's tile of K (ld ldk), RES_ROWS rows from row0 by RES_COLS * 32
-// columns from col0: lane L holds in slot (r, c) the element at row
-// row0 + (r ^ ((L >> 1) & 15)) and column col0 + L + 32 c, zero outside
+// The row (counted from the warp's first) in slot r of lane L's tile of
+// ROWS rows.  Slots that tree_rows' halving stages add lie half a tile
+// apart and hold the same row on the two partners, whose lane indices
+// differ in that stage's bit:
+//   16 rows: slot r holds row r ^ ((L >> 1) & 15), lane bits 4, 3, 2, 1
+//            flipping row bits 3, 2, 1, 0 (strides 16, 8, 4, 2);
+//   12 rows: slot 6 s1 + 3 s2 + i holds row 6 (s1 ^ L4) + 3 (s2 ^ L3) + i
+//            (L4, L3 the lane's bits 4 and 3: strides 16 and 8).
+template <int ROWS>
+__host__ __device__ ADMM_INLINE int tile_row(int r, int lane) {
+  if constexpr (ROWS == 16) {
+    return r ^ ((lane >> 1) & 15);
+  } else {
+    static_assert(ROWS == 12, "tiles of 16 or 12 rows");
+    return 6 * ((r / 6) ^ ((lane >> 4) & 1)) + 3 * (((r / 3) & 1) ^ ((lane >> 3) & 1)) + r % 3;
+  }
+}
+
+// The first RREG slots of a warp's tile of K (ld ldk), ROWS rows from row0
+// by RES_COLS * 32 columns, to registers k: lane L holds in slot (r, c) the
+// element at row row0 + tile_row(r, L) and column L + 32 c, zero outside
 // n x n.  A row's columns lie on consecutive lanes, so a load of the warp
 // reads consecutive addresses.
+template <int ROWS, int RREG = ROWS>
 __host__ __device__ ADMM_INLINE void load_tile(const float* K, long long ldk, int n, int row0,
-                                               int col0, int lane,
-                                               float (&k)[RES_ROWS][RES_COLS]) {
+                                               int lane, float (&k)[ROWS][RES_COLS]) {
 #pragma unroll
-  for (int r = 0; r < RES_ROWS; ++r)
+  for (int r = 0; r < RREG; ++r)
 #pragma unroll
     for (int c = 0; c < RES_COLS; ++c) {
-      const int i = row0 + (r ^ ((lane >> 1) & 15)), j = col0 + lane + 32 * c;
+      const int i = row0 + tile_row<ROWS>(r, lane), j = lane + 32 * c;
       k[r][c] = (i < n && j < n) ? K[i * ldk + j] : 0.0f;
     }
 }
 
 // acc[r] += the tile's part of lane L's partial chain p_L (row_times) for
-// the row of slot r: 16 independent fmaf chains in increasing k < n.
-__host__ __device__ ADMM_INLINE void tile_chains(const float (&k)[RES_ROWS][RES_COLS],
-                                                 const float* rhs, int n, int col0, int lane,
-                                                 float (&acc)[RES_ROWS]) {
+// the row of slot r: ROWS independent fmaf chains in increasing k < n, on
+// slots r < RREG from the registers k and the others read from K (ld ldk)
+// where it lies, whose rows must lie inside n (so RREG < ROWS only for the
+// fused and full kernels' 12-row tiles, n = 12h).
+template <int ROWS, int RREG = ROWS>
+__host__ __device__ ADMM_INLINE void tile_chains(const float (&k)[ROWS][RES_COLS],
+                                                 const float* K, long long ldk, int row0,
+                                                 const float* rhs, int n, int lane,
+                                                 float (&acc)[ROWS]) {
   float x[RES_COLS];
 #pragma unroll
   for (int c = 0; c < RES_COLS; ++c) {
-    const int j = col0 + lane + 32 * c;
+    const int j = lane + 32 * c;
     x[c] = j < n ? rhs[j] : 0.0f;
   }
 #pragma unroll
   for (int c = 0; c < RES_COLS; ++c) {
-    if (col0 + lane + 32 * c < n) {
+    if (lane + 32 * c < n) {
 #pragma unroll
-      for (int r = 0; r < RES_ROWS; ++r) acc[r] = fmaf(k[r][c], x[c], acc[r]);
+      for (int r = 0; r < ROWS; ++r) {
+        const float kr = r < RREG ? k[r][c]
+            : K[(long long)(row0 + tile_row<ROWS>(r, lane)) * ldk + lane + 32 * c];
+        acc[r] = fmaf(kr, x[c], acc[r]);
+      }
     }
   }
 }
 
-// xt's rows [row0, row0 + RES_ROWS) from the warp's chains: row_times'
-// tree as a reduce-scatter butterfly.  At strides 16, 8, 4, 2 a lane keeps
-// the first half of its slots and adds its partner's second half, which
-// holds the same rows (the partner's permutation in load_tile differs in
-// that stride's bit), so 8 + 4 + 2 + 1 shuffles leave lanes 2i and 2i + 1
-// with row row0 + i, and one more sums them; lane 2i writes it.
-__host__ __device__ ADMM_INLINE void tree_rows(float (&acc)[RES_ROWS], float* xt, int n,
+// xt's rows [row0, row0 + ROWS) from the warp's chains: row_times' tree
+// p[j] += p[j + s] (s = 16 ... 1) by shuffles, a lane adding its partner's
+// value to its own (IEEE addition is commutative, so every lane holding a
+// row holds the tree's bits).  16 rows, a reduce-scatter: at strides 16,
+// 8, 4, 2 a lane keeps the first half of its slots and adds its partner's
+// second half, which holds the same rows (tile_row), so 8 + 4 + 2 + 1
+// shuffles leave lanes 2i and 2i + 1 with row row0 + i, and one more sums
+// them; lane 2i writes it.  12 rows: halved at strides 16 and 8 (6 + 3
+// shuffles) to 3 rows on each group of 8 lanes, then a full butterfly over
+// those 3 at strides 4, 2, 1 (9 shuffles); lane 8g + i (i < 3) writes the
+// group's row i.
+template <int ROWS>
+__host__ __device__ ADMM_INLINE void tree_rows(float (&acc)[ROWS], float* xt, int n,
                                                int row0, int lane) {
-  static_assert(RES_ROWS == 16, "four halving stages");
+  if constexpr (ROWS == 16) {
 #pragma unroll
-  for (int r = 0; r < 8; ++r) acc[r] += shfl_xor(acc[r + 8], 16);
+    for (int r = 0; r < 8; ++r) acc[r] += shfl_xor(acc[r + 8], 16);
 #pragma unroll
-  for (int r = 0; r < 4; ++r) acc[r] += shfl_xor(acc[r + 4], 8);
+    for (int r = 0; r < 4; ++r) acc[r] += shfl_xor(acc[r + 4], 8);
 #pragma unroll
-  for (int r = 0; r < 2; ++r) acc[r] += shfl_xor(acc[r + 2], 4);
-  acc[0] += shfl_xor(acc[1], 2);
-  const float sum = acc[0] + shfl_xor(acc[0], 1);
-  const int i = row0 + (lane >> 1);
-  if (!(lane & 1) && i < n) xt[i] = sum;
+    for (int r = 0; r < 2; ++r) acc[r] += shfl_xor(acc[r + 2], 4);
+    acc[0] += shfl_xor(acc[1], 2);
+    const float sum = acc[0] + shfl_xor(acc[0], 1);
+    const int i = row0 + (lane >> 1);
+    if (!(lane & 1) && i < n) xt[i] = sum;
+  } else {
+    static_assert(ROWS == 12, "tiles of 16 or 12 rows");
+#pragma unroll
+    for (int r = 0; r < 6; ++r) acc[r] += shfl_xor(acc[r + 6], 16);
+#pragma unroll
+    for (int r = 0; r < 3; ++r) acc[r] += shfl_xor(acc[r + 3], 8);
+#pragma unroll
+    for (int s = 4; s >= 1; s /= 2)
+#pragma unroll
+      for (int r = 0; r < 3; ++r) acc[r] += shfl_xor(acc[r], s);
+    const int r = lane & 7;
+    const float sum = r == 0 ? acc[0] : r == 1 ? acc[1] : acc[2];
+    const int i = row0 + 6 * ((lane >> 4) & 1) + 3 * ((lane >> 3) & 1) + r;
+    if (r < 3 && i < n) xt[i] = sum;
+  }
+}
+
+// `iterations` sweeps, the vectors in place, with each warp's product on
+// its tile (warp w rows [ROWS w, ROWS (w + 1)), from load_tile; slots r >=
+// RREG read from K where it lies) and the lanes b < n / 3 updating cone
+// block b.  The lane that updates block b computes its next rhs, so a
+// sweep has two barriers: rhs before the product, xt after it.
+template <int NL, int ROWS, int RREG = ROWS>
+__host__ __device__ ADMM_INLINE void register_sweeps(const Team<NL>& t,
+                                                     const float (&k)[ROWS][RES_COLS],
+                                                     const float* K, long long ldk, int n,
+                                                     float mu, const Vecs& v, int iterations,
+                                                     float sigma, float alpha) {
+  static_assert(NL / 32 * ROWS == REG_N, "the warps' tiles cover REG_N rows");
+  const int lane = t.lane % 32, row0 = ROWS * (t.lane / 32), nb = n / 3;
+  for (int b = t.lane; b < nb; b += NL) block_rhs(v, b, mu, sigma);
+  t.sync();
+  for (int it = 0; it < iterations; ++it) {
+    if (row0 < n) {
+      float acc[ROWS];
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) acc[r] = 0.0f;
+      tile_chains<ROWS, RREG>(k, K, ldk, row0, v.rhs, n, lane, acc);
+      tree_rows<ROWS>(acc, v.xt, n, row0, lane);
+    }
+    t.sync();
+    for (int b = t.lane; b < nb; b += NL)
+      block_update(v, b, mu, alpha, sigma, it + 1 < iterations);
+    t.sync();
+  }
 }
 
 // Kernel 3 at n <= REG_N, one block's scenarios.  Shared memory: the
@@ -1057,7 +1175,7 @@ __host__ __device__ ADMM_INLINE void iterate_resident(const Team<NL>& t, const f
   Vecs v;
   unsigned long long* bar =
       reinterpret_cast<unsigned long long*>(carve(smem + stage_floats(n, m), n, m, v));
-  const int lane = t.lane % 32, row0 = RES_ROWS * (t.lane / 32), nb = n / 3;
+  const int lane = t.lane % 32, row0 = RES_ROWS * (t.lane / 32);
   if (t.lane == 0) {
     copy_barrier_init(bar);
     if (block < B) fetch_scenario(Kinv, a, block, n, m, stage, bar);
@@ -1068,7 +1186,7 @@ __host__ __device__ ADMM_INLINE void iterate_resident(const Team<NL>& t, const f
     copy_wait(bar, phase);
     phase ^= 1u;
     float k[RES_ROWS][RES_COLS];
-    load_tile(stage, n, n, row0, 0, lane, k);
+    load_tile<RES_ROWS>(stage, n, n, row0, lane, k);
     for (int i = t.lane; i < n; i += NL) {
       v.q[i] = sv[i]; v.d[i] = sv[n + i]; v.x[i] = sv[2 * n + i];
     }
@@ -1079,27 +1197,38 @@ __host__ __device__ ADMM_INLINE void iterate_resident(const Team<NL>& t, const f
     }
     t.sync();  // the stage is read: the next scenario may arrive in it
     if (t.lane == 0 && s + blocks < B) fetch_scenario(Kinv, a, s + blocks, n, m, stage, bar);
-    for (int b = t.lane; b < nb; b += NL) block_rhs(v, b, mu, sigma);
-    t.sync();
-    // The lane that updates block b computes its next rhs, so a sweep has
-    // two barriers: rhs before the product, xt after it.
-    for (int it = 0; it < iterations; ++it) {
-      if (row0 < n) {
-        float acc[RES_ROWS];
-#pragma unroll
-        for (int r = 0; r < RES_ROWS; ++r) acc[r] = 0.0f;
-        tile_chains(k, v.rhs, n, 0, lane, acc);
-        tree_rows(acc, v.xt, n, row0, lane);
-      }
-      t.sync();
-      for (int b = t.lane; b < nb; b += NL)
-        block_update(v, b, mu, alpha, sigma, it + 1 < iterations);
-      t.sync();
-    }
+    register_sweeps<NL, RES_ROWS>(t, k, nullptr, 0, n, mu, v, iterations, sigma, alpha);
     const IterArgs o = scenario_args(a, s, n, m);
     for (int i = t.lane; i < n; i += NL) o.x[i] = v.x[i];
     for (int i = t.lane; i < m; i += NL) o.y[i] = v.y[i];
   }
+}
+
+// The sweeps of kernels 4 and 5 on Kinv = X (ld n + 1, complete), once
+// `init` has put the vectors in place; one barrier between the tiles and
+// vectors and the first sweep.  In a block of FUSED_THREADS lanes with X
+// on chip (n <= REG_N) each warp moves the first FUSED_REG_ROWS rows of its
+// tile of X to registers and reads the others from X each sweep
+// (register_sweeps); otherwise the lanes read X where it lies, a row a
+// lane (admm_iterations).  Every path sums xt in row_times' order.
+template <int NL, bool OnChip, class Init>
+__host__ __device__ ADMM_INLINE void sweeps_on_x(const Team<NL>& t, const float* X, int n,
+                                                 float mu, const Vecs& v, int iterations,
+                                                 float sigma, float alpha, Init init) {
+  if constexpr (NL == FUSED_THREADS && OnChip) {
+    if (in_registers(n)) {
+      constexpr int ROWS = FUSED_ROWS, RREG = FUSED_REG_ROWS;
+      float k[ROWS][RES_COLS];
+      load_tile<ROWS, RREG>(X, n + 1, n, ROWS * (t.lane / 32), t.lane % 32, k);
+      init();
+      t.sync();
+      register_sweeps<NL, ROWS, RREG>(t, k, X, n + 1, n, mu, v, iterations, sigma, alpha);
+      return;
+    }
+  }
+  init();
+  t.sync();
+  admm_iterations(t, X, n + 1, n, mu, v, iterations, sigma, alpha);
 }
 
 // Kernel 4, one scenario: invert K in place into l.X (Kinv, ld n + 1),
@@ -1111,44 +1240,55 @@ __host__ __device__ void fused_one(const Team<NL>& t, const float* K, const Layo
   Vecs v;
   carve(l.vecs, n, m, v);
   spd_inverse<NL, OnChip>(t, K, n, n, ns_iters, l.X, l.T, l.R, n, l.X, n + 1, l.tiles);
-  load_iter_vectors(t, a, n, m, v);
-  admm_iterations(t, l.X, n + 1, n, mu, v, iterations, sigma, alpha);
+  sweeps_on_x<NL, OnChip>(t, l.X, n, mu, v, iterations, sigma, alpha,
+                          [&] { load_iter_vectors(t, a, n, m, v); });
   store_iter_result(t, a, n, m, v);
 }
 
-// Operands of one scenario for the full kernel.
+// Operands of the full kernel: batch-major, or one scenario's.
 struct FullArgs {
   const float *H, *g, *srow, *l, *u, *U0, *lam0;
   float *U, *lam;
 };
 
-// Kernel 5, one scenario: Ruiz scaling, cone-row scaling, per-row rho,
-// K = Hs + A^T rho A + sigma I, inversion, the warm-start map, the sweeps
-// and the unscaling.  K is assembled in l.Kw and inverted into l.X.
-template <int NL, bool OnChip>
-__host__ __device__ void full_one(const Team<NL>& t, const FullArgs& a, const Layout& l, int n,
-                                  int m, float mu, int iterations, float sigma, float alpha,
-                                  int ns_iters, int ruiz_iters, float rho_ineq, float rho_eq) {
-  Vecs v;
-  float* extra = carve(l.vecs, n, m, v);
-  float* delta = extra;          // n
-  const long long nn = (long long)n * n;
-  float* Kw = l.Kw;
-  const int nb = n / 3;
+__host__ __device__ inline FullArgs scenario_args(const FullArgs& a, long long s, int n, int m) {
+  const long long sn = s * n, sm = s * m;
+  return FullArgs{a.H + sn * n, a.g + sn, a.srow + sm, a.l + sm, a.u + sm,
+                  a.U0 + sn, a.lam0 + sm, a.U + sn, a.lam + sm};
+}
 
-  // Ruiz equilibration: Hs = D H D, d = prod of the deltas.
-  for (long long e = t.lane; e < nn; e += NL) Kw[e] = a.H[e];
+// Kernel 5's set-up in X's buffer (ld n + 1, free until the inverse): H
+// read once; Ruiz equilibration Hs = D H D, d the product of the passes'
+// deltas, each row's abs-max taken by one warp (a max is exact in any
+// order); q = d g; cone-row scaling E, per-row rho and the 3x3 blocks of
+// A^T rho A + sigma I added in place.  Then K to Kw (ld n, for the
+// Newton-Schulz steps) and X = sym(K), ready for the recursion.
+template <int NL>
+__host__ __device__ inline void full_setup(const Team<NL>& t, const FullArgs& a, float* X,
+                                           float* Kw, float* delta, int n, int m, float mu,
+                                           float sigma, int ruiz_iters, float rho_ineq,
+                                           float rho_eq, const Vecs& v) {
+  const int ldx = n + 1, nb = n / 3;
+  load_rows(t, a.H, n, n, X, ldx);
   for (int i = t.lane; i < n; i += NL) v.d[i] = 1.0f;
   t.sync();
+  constexpr int W = NL < 32 ? NL : 32;  // lanes of a row's abs-max
+  const int row_lane = t.lane % W;
   for (int pass = 0; pass < ruiz_iters; ++pass) {
-    for (int i = t.lane; i < n; i += NL) {
+    for (int i = t.lane / W; i < n; i += NL / W) {
       float col = 0.0f;
-      for (int j = 0; j < n; ++j) col = fmaxf(col, fabsf(Kw[(long long)i * n + j]));
-      const float dl = 1.0f / sqrtf(fmaxf(col, 1e-8f));
-      delta[i] = fminf(fmaxf(dl, 1e-4f), 1e4f);
+      for (int j = row_lane; j < n; j += W) col = fmaxf(col, fabsf(X[(long long)i * ldx + j]));
+      for (int s = W / 2; s >= 1; s /= 2) col = fmaxf(col, shfl_xor(col, s));
+      if (row_lane == 0) {
+        const float dl = 1.0f / sqrtf(fmaxf(col, 1e-8f));
+        delta[i] = fminf(fmaxf(dl, 1e-4f), 1e4f);
+      }
     }
     t.sync();
-    for (long long e = t.lane; e < nn; e += NL) Kw[e] = Kw[e] * delta[e / n] * delta[e % n];
+    for (int e = t.lane; e < n * n; e += NL) {
+      float* x = X + (long long)(e / n) * ldx + e % n;
+      *x = *x * delta[e / n] * delta[e % n];
+    }
     for (int i = t.lane; i < n; i += NL) v.d[i] = v.d[i] * delta[i];
     t.sync();
   }
@@ -1177,30 +1317,44 @@ __host__ __device__ void full_one(const Team<NL>& t, const FullArgs& a, const La
       for (int c2 = 0; c2 < 3; ++c2) {
         float core = 0.0f;
         for (int r = 0; r < RPB; ++r) core += pat[r][c] * wr[r] * pat[r][c2];
-        float* k = Kw + (long long)(3 * b + c) * n + 3 * b + c2;
+        float* k = X + (long long)(3 * b + c) * ldx + 3 * b + c2;
         float kv = *k + core * db[c] * db[c2];
         if (c == c2) kv += sigma;
         *k = kv;
       }
   }
   t.sync();
+  for (int e = t.lane; e < n * n; e += NL) Kw[e] = X[(long long)(e / n) * ldx + e % n];
+  t.sync();
+  symmetrize_x(t, X, n);
+}
 
-  spd_inverse<NL, OnChip>(t, Kw, n, n, ns_iters, l.X, l.T, l.R, n, l.X, n + 1, l.tiles);
-
+// Kernel 5, one scenario: the set-up (full_setup), the inversion of K in
+// place into l.X (Kinv, ld n + 1), the warm-start map, the sweeps and the
+// unscaling.
+template <int NL, bool OnChip>
+__host__ __device__ void full_one(const Team<NL>& t, const FullArgs& a, const Layout& l, int n,
+                                  int m, float mu, int iterations, float sigma, float alpha,
+                                  int ns_iters, int ruiz_iters, float rho_ineq, float rho_eq) {
+  Vecs v;
+  float* delta = carve(l.vecs, n, m, v);   // n
+  const int nb = n / 3;
+  full_setup(t, a, l.X, l.Kw, delta, n, m, mu, sigma, ruiz_iters, rho_ineq, rho_eq, v);
+  invert_in_place<NL, OnChip>(t, l.Kw, n, n, ns_iters, l.X, l.T, l.R, n, l.X, n + 1, l.tiles);
   // Warm start in scaled coordinates: x0 = U0 / d,
   // z0 = clip(es (P0 U0), lo, hi), y0 = lam0 / es on gated rows, else 0
   // (the Pallas kernel's srow lam0 norms, in the plain version's form).
-  for (int b = t.lane; b < nb; b += NL) {
-    const float s[3] = {a.U0[3 * b], a.U0[3 * b + 1], a.U0[3 * b + 2]};
-    for (int c = 0; c < 3; ++c) v.x[3 * b + c] = s[c] / v.d[3 * b + c];
-    for (int r = 0; r < RPB; ++r) {
-      const int row = RPB * b + r;
-      v.z[row] = clip(v.es[row] * pyramid_row(r, mu, s), v.lo[row], v.hi[row]);
-      v.y[row] = v.es[row] > 0.0f ? a.lam0[row] / v.es[row] : 0.0f;
+  sweeps_on_x<NL, OnChip>(t, l.X, n, mu, v, iterations, sigma, alpha, [&] {
+    for (int b = t.lane; b < nb; b += NL) {
+      const float s[3] = {a.U0[3 * b], a.U0[3 * b + 1], a.U0[3 * b + 2]};
+      for (int c = 0; c < 3; ++c) v.x[3 * b + c] = s[c] / v.d[3 * b + c];
+      for (int r = 0; r < RPB; ++r) {
+        const int row = RPB * b + r;
+        v.z[row] = clip(v.es[row] * pyramid_row(r, mu, s), v.lo[row], v.hi[row]);
+        v.y[row] = v.es[row] > 0.0f ? a.lam0[row] / v.es[row] : 0.0f;
+      }
     }
-  }
-  t.sync();
-  admm_iterations(t, l.X, n + 1, n, mu, v, iterations, sigma, alpha);
+  });
   for (int i = t.lane; i < n; i += NL) a.U[i] = v.x[i] * v.d[i];
   for (int i = t.lane; i < m; i += NL) a.lam[i] = v.es[i] * v.y[i];
 }
@@ -1208,6 +1362,9 @@ __host__ __device__ void full_one(const Team<NL>& t, const FullArgs& a, const La
 }  // namespace admm
 
 // Exported by every library built from this header (the CUDA kernels,
-// their host builds), so that the wrapper refuses a larger n with a
-// message.
+// their host builds): the wrapper refuses a larger n with a message, and
+// sizes each kernel's device-memory workspace.
 extern "C" int admm_max_n() { return admm::MAX_N; }
+extern "C" long long admm_workspace_floats(int kernel, int n, int m) {
+  return admm::workspace_floats(kernel, n, m);
+}

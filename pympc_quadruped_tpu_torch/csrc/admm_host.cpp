@@ -1,10 +1,10 @@
 // Host build of the condensed-ADMM kernels' arithmetic: the same C
-// launchers as admm.cu and admm_iterate.cu, running each scenario's block
-// on the CPU with one lane (admm::Team<1>, no-op barrier) and heap buffers
-// in place of shared memory.  The CPU tests compile it with the host C++
-// compiler and drive it through the same ctypes binding as the CUDA
-// library, so the kernels' own per-scenario code (admm.cuh) is checked
-// against the JAX reference without a card.
+// launchers as admm.cu, admm_iterate.cu and admm_fused.cu, running each
+// scenario's block on the CPU with one lane (admm::Team<1>, no-op barrier)
+// and heap buffers in place of shared memory.  The CPU tests compile it
+// with the host C++ compiler and drive it through the same ctypes binding
+// as the CUDA libraries, so the kernels' own per-scenario code (admm.cuh)
+// is checked against the JAX reference without a card.
 #include <vector>
 
 #include "admm.cuh"
@@ -21,10 +21,6 @@ std::vector<float> block_smem(int kernel, int n, int m) {
 }
 
 }  // namespace
-
-extern "C" long long admm_workspace_floats(int kernel, int n, int m) {
-  return admm::workspace_floats(kernel, n, m);
-}
 
 extern "C" int admm_invert_launch(const float* K, float* Kinv, float* ws, int B, int n,
                                   int ns_iters, void* /*stream*/) {
@@ -63,15 +59,15 @@ extern "C" int admm_fused_launch(const float* K, const float* q, const float* d,
                                  const float* z0, const float* y0, float* x, float* y,
                                  float* ws, int B, int n, int m, int iterations, float sigma,
                                  float alpha, int ns_iters, void* /*stream*/) {
-  const long long nn = (long long)n * n, wf = admm::workspace_floats(admm::FUSED, n, m);
+  const long long wf = admm::workspace_floats(admm::FUSED, n, m);
   std::vector<float> smem = block_smem(admm::FUSED, n, m);
   const admm::IterArgs a{q, d, es, rho, l, u, x0, z0, y0, x, y};
   for (long long b = 0; b < B; ++b) {
-    const admm::IterArgs s = admm::scenario_args(a, b, n, m);
     float* w = ws + b * wf;
     admm::with_layout(admm::FUSED, n, m, smem.data(), w, [&](const admm::Layout& lay, auto p) {
-      admm::fused_one<1, decltype(p)::on_chip>(kTeam, K + b * nn, lay, s, n, m, P0[2], iterations,
-                                               sigma, alpha, ns_iters);
+      admm::fused_one<1, decltype(p)::on_chip>(kTeam, K + b * n * n, lay,
+                                               admm::scenario_args(a, b, n, m), n, m, P0[2],
+                                               iterations, sigma, alpha, ns_iters);
     });
   }
   return 0;
@@ -83,15 +79,15 @@ extern "C" int admm_full_launch(const float* H, const float* g, const float* sro
                                 float* ws, int B, int n, int m, int iterations, float sigma,
                                 float alpha, int ns_iters, int ruiz_iters, float rho_ineq,
                                 float rho_eq, void* /*stream*/) {
-  const long long nn = (long long)n * n, wf = admm::workspace_floats(admm::FULL, n, m);
+  const long long wf = admm::workspace_floats(admm::FULL, n, m);
   std::vector<float> smem = block_smem(admm::FULL, n, m);
+  const admm::FullArgs a{H, g, srow, l, u, U0, lam0, U, lam};
   for (long long b = 0; b < B; ++b) {
-    admm::FullArgs s{H + b * nn, g + b * n, srow + b * m, l + b * m, u + b * m,
-                     U0 + b * n, lam0 + b * m, U + b * n, lam + b * m};
     float* w = ws + b * wf;
     admm::with_layout(admm::FULL, n, m, smem.data(), w, [&](const admm::Layout& lay, auto p) {
-      admm::full_one<1, decltype(p)::on_chip>(kTeam, s, lay, n, m, P0[2], iterations, sigma, alpha,
-                                              ns_iters, ruiz_iters, rho_ineq, rho_eq);
+      admm::full_one<1, decltype(p)::on_chip>(kTeam, admm::scenario_args(a, b, n, m), lay, n, m,
+                                              P0[2], iterations, sigma, alpha, ns_iters,
+                                              ruiz_iters, rho_ineq, rho_eq);
     });
   }
   return 0;

@@ -1,5 +1,6 @@
-"""Wrapper of the hand-written CUDA condensed-ADMM kernels (``csrc/admm.cu``
-and ``csrc/admm_iterate.cu``, arithmetic in ``csrc/admm.cuh``).
+"""Wrapper of the hand-written CUDA condensed-ADMM kernels (``csrc/admm.cu``,
+``csrc/admm_iterate.cu`` and ``csrc/admm_fused.cu``, arithmetic in
+``csrc/admm.cuh``).
 
 Each entry has the signature and returns of its JAX counterpart in
 ``pympc_quadruped_tpu/ops/qp/admm_pallas.py``, without the Pallas tile
@@ -54,9 +55,9 @@ def _check(name, t, shape, device):
 
 
 def _check_aligned(name, t):
-    """The inverting kernels read K's rows 16 bytes at a time, and the
-    iterate kernel brings its operands to shared memory by 16-byte bulk
-    copies."""
+    """The inverting kernels read K's (the full kernel H's) rows 16 bytes at
+    a time, and the iterate kernel brings its operands to shared memory by
+    16-byte bulk copies."""
     if t.data_ptr() % 16:
         raise ValueError(f"{name}: the kernels need a 16-byte aligned start")
 
@@ -122,6 +123,20 @@ def iterate_config(lib, B: int, n: int, m: int) -> dict:
         raise RuntimeError(f"admm_iterate_kernel configuration query failed: CUDA error {rc}")
     return {"threads": out[0], "grid": out[1], "smem_per_block": out[2],
             "blocks_per_sm": out[3]}
+
+
+def fused_config(lib, kernel: str, n: int, m: int) -> dict:
+    """How the fused (``kernel="fused"``) or full (``"full"``) kernel
+    launches at (n, m): threads a block, dynamic shared memory bytes a
+    block, blocks resident per SM, and device-memory workspace floats per
+    scenario."""
+    kid = {"fused": _FUSED, "full": _FULL}[kernel]
+    out = (ctypes.c_int * 3)()
+    rc = lib.admm_fused_config(kid, n, m, ctypes.addressof(out))
+    if rc != 0:
+        raise RuntimeError(f"admm_{kernel}_kernel configuration query failed: CUDA error {rc}")
+    return {"threads": out[0], "smem_per_block": out[1], "blocks_per_sm": out[2],
+            "workspace_floats": lib.admm_workspace_floats(kid, n, m)}
 
 
 def _workspace(lib, kernel, B, n, m, device) -> torch.Tensor:
@@ -221,9 +236,10 @@ def invert_iterate(ops: AdmmKktOperands, P0: torch.Tensor, cfg: admm_fast.AdmmFa
 def iterate_fused(ops: AdmmKktOperands, P0: torch.Tensor, cfg: admm_fast.AdmmFastConfig,
                   init=None, lib=None):
     """Invert and iterate in one launch; Kinv lands in shared memory and
-    never goes back to device memory.  Returns SCALED (x, y)."""
+    never goes back to device memory.  Returns SCALED (x, y), bit for bit
+    :func:`invert_iterate`'s."""
     _kkt_operands(ops, "iterate_fused")
-    target = _target(ops.q, lib)
+    target = _target(ops.q, lib, "admm_fused")
     if target is None:
         Kinv = admm_fast.spd_inverse(ops.K, cfg.newton_schulz_iters)
         return admm_fast.iterate_jnp(AdmmOperands(Kinv, *ops[1:]), P0, cfg, init)
@@ -245,7 +261,7 @@ def solve_full(H, g, srow, l, u, P0: torch.Tensor, cfg: admm_fast.AdmmFastConfig
     K assembly, inversion, sweeps and unscaling.  Returns UNSCALED
     ``(U (B,n), lam (B,m))``.  ``warm`` is the unscaled ``(U0, lam0)``;
     zeros are exactly the cold start."""
-    target = _target(g, lib)
+    target = _target(g, lib, "admm_fused")
     if target is None:
         return admm_fast.solve_full(H, g, srow, l, u, P0, cfg, warm)
     lib, stream = target
@@ -254,6 +270,7 @@ def solve_full(H, g, srow, l, u, P0: torch.Tensor, cfg: admm_fast.AdmmFastConfig
     _dims(lib, n, m)
     dev = g.device
     _check("H", H, (B, n, n), dev)
+    _check_aligned("H", H)
     _check("g", g, (B, n), dev)
     for name, t in (("srow", srow), ("l", l), ("u", u)):
         _check(name, t, (B, m), dev)

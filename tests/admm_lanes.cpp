@@ -1,14 +1,15 @@
 // The condensed kernels' arithmetic (admm.cuh) with the card's lane
-// splits, as host threads: the invert kernel's 512 lanes, the fused and
-// wide iterate kernels' 256, and the iterate kernel's register path, 384
-// lanes in 12 warps of persistent blocks.  One barrier stands for __syncthreads(), and
-// each warp has an exchange array and a barrier of its own standing for
-// __shfl_xor_sync.  tests/test_torch_admm.py builds it with the host C++
-// compiler and holds its outputs bitwise against the one-lane host build
-// (admm_host.cpp): the in-place recursion overwrites blocks that other
-// lanes read, and the sweeps read vectors that other lanes write, so a
-// missing barrier between a step's writes and the next step's reads shows
-// as a difference.
+// splits, as host threads: the invert, fused and full kernels' 512 lanes
+// (16 warps: the fused and full kernels' register sweeps and the full
+// kernel's row maxima shuffle), the wide iterate kernel's 256, and the
+// iterate kernel's register path, 384 lanes in 12 warps of persistent
+// blocks.  One barrier stands for __syncthreads(), and each warp has an
+// exchange array and a barrier of its own standing for __shfl_xor_sync.
+// tests/test_torch_admm.py builds it with the host C++ compiler and holds
+// its outputs bitwise against the one-lane host build (admm_host.cpp): the
+// in-place recursion overwrites blocks that other lanes read, and the
+// sweeps read vectors that other lanes write, so a missing barrier between
+// a step's writes and the next step's reads shows as a difference.
 #include <pthread.h>
 
 #include <thread>
@@ -63,17 +64,13 @@ void run_block(int lanes, F f) {
   pthread_barrier_destroy(&g_barrier);
 }
 
-constexpr int kInvertLanes = 512, kLanes = 256;
+constexpr int kInvertLanes = 512, kWideLanes = 256, kFusedLanes = admm::FUSED_THREADS;
 // Persistent blocks of the iterate kernel's register path: few enough that
 // a block walks several scenarios of a small batch, prefetching each next
 // one.
 constexpr int kIterateBlocks = 2;
 
 }  // namespace
-
-extern "C" long long admm_workspace_floats(int kernel, int n, int m) {
-  return admm::workspace_floats(kernel, n, m);
-}
 
 extern "C" int admm_invert_launch(const float* K, float* Kinv, float* ws, int B, int n,
                                   int ns_iters, void* /*stream*/) {
@@ -105,8 +102,8 @@ extern "C" int admm_iterate_launch(const float* Kinv, const float* q, const floa
     const bool on_chip = admm::on_chip(admm::ITERATE, n, m);
     std::vector<float> smem(admm::smem_bytes(admm::ITERATE, n, m) / 4);
     for (long long b = 0; b < B; ++b)
-      run_block(kLanes, [&](int lane) {
-        admm::iterate_one(admm::Team<kLanes>{lane}, Kinv + b * n * n,
+      run_block(kWideLanes, [&](int lane) {
+        admm::iterate_one(admm::Team<kWideLanes>{lane}, Kinv + b * n * n,
                           on_chip ? smem.data() : nullptr, admm::scenario_args(a, b, n, m), n, m,
                           P0[2], iterations, sigma, alpha,
                           on_chip ? smem.data() + admm::x_floats(n) : smem.data());
@@ -130,16 +127,37 @@ extern "C" int admm_fused_launch(const float* K, const float* q, const float* d,
                                  const float* z0, const float* y0, float* x, float* y,
                                  float* ws, int B, int n, int m, int iterations, float sigma,
                                  float alpha, int ns_iters, void* /*stream*/) {
-  const long long nn = (long long)n * n, wf = admm::workspace_floats(admm::FUSED, n, m);
+  const long long wf = admm::workspace_floats(admm::FUSED, n, m);
   std::vector<float> smem(admm::smem_bytes(admm::FUSED, n, m) / 4);
   const admm::IterArgs a{q, d, es, rho, l, u, x0, z0, y0, x, y};
   for (long long b = 0; b < B; ++b)
-    run_block(kLanes, [&](int lane) {
+    run_block(kFusedLanes, [&](int lane) {
       admm::with_layout(admm::FUSED, n, m, smem.data(), ws + b * wf,
                         [&](const admm::Layout& lay, auto p) {
-        admm::fused_one<kLanes, decltype(p)::on_chip>(admm::Team<kLanes>{lane}, K + b * nn, lay,
-                                                      admm::scenario_args(a, b, n, m), n, m,
-                                                      P0[2], iterations, sigma, alpha, ns_iters);
+        admm::fused_one<kFusedLanes, decltype(p)::on_chip>(
+            admm::Team<kFusedLanes>{lane}, K + b * n * n, lay, admm::scenario_args(a, b, n, m),
+            n, m, P0[2], iterations, sigma, alpha, ns_iters);
+      });
+    });
+  return 0;
+}
+
+extern "C" int admm_full_launch(const float* H, const float* g, const float* srow,
+                                const float* l, const float* u, const float* U0,
+                                const float* lam0, const float* P0, float* U, float* lam,
+                                float* ws, int B, int n, int m, int iterations, float sigma,
+                                float alpha, int ns_iters, int ruiz_iters, float rho_ineq,
+                                float rho_eq, void* /*stream*/) {
+  const long long wf = admm::workspace_floats(admm::FULL, n, m);
+  std::vector<float> smem(admm::smem_bytes(admm::FULL, n, m) / 4);
+  const admm::FullArgs a{H, g, srow, l, u, U0, lam0, U, lam};
+  for (long long b = 0; b < B; ++b)
+    run_block(kFusedLanes, [&](int lane) {
+      admm::with_layout(admm::FULL, n, m, smem.data(), ws + b * wf,
+                        [&](const admm::Layout& lay, auto p) {
+        admm::full_one<kFusedLanes, decltype(p)::on_chip>(
+            admm::Team<kFusedLanes>{lane}, admm::scenario_args(a, b, n, m), lay, n, m, P0[2],
+            iterations, sigma, alpha, ns_iters, ruiz_iters, rho_ineq, rho_eq);
       });
     });
   return 0;

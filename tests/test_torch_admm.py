@@ -11,7 +11,8 @@
   with the host C++ compiler and driven through ``admm_cuda``'s checks and
   ctypes binding, against the JAX jnp path, at h=2 and h=3 with B=3, and the
   iterate kernel's also at h=16; and the card's lane splits, run as host
-  threads (tests/admm_lanes.cpp), bit for bit against the one-lane build.
+  threads (tests/admm_lanes.cpp), bit for bit against the one-lane build
+  (the fused kernel also against the split pipeline).
 - ``engine.solve_scenarios(solver="admm")`` at h=16 against the JAX engine,
   the f64 active-set oracle (tests/test_riccati.py helpers) and JAX's f64
   KKT certificate (``kkt_residuals_f64``/``kkt_gate``).
@@ -316,12 +317,13 @@ def test_fused_kernel_workspace_holds_only_newton_schulz_product(host_kernels):
     assert host_kernels.admm_workspace_floats(admm_cuda._FULL, n, m) == 2 * n * n
 
 
-@pytest.mark.parametrize("h", [2, 17])
+@pytest.mark.parametrize("h", [2, 10, 16, 17])
 def test_fused_kernel_code_matches_split_bitwise(h, host_kernels):
     """The fused kernel inverts with the invert kernel's code and sweeps
-    with the iterate kernel's, so on the host its (x, y) equal the split
-    pipeline's bit for bit: at h = 2 with the buffers on chip, at h = 17
-    with X and the panel in the workspace."""
+    with the iterate kernel's summation order, so on the host its (x, y)
+    equal the split pipeline's bit for bit: to h = 16 with the buffers on
+    chip (the card's register sweeps at h = 10 and 16, n = 120 and 192),
+    at h = 17 with X and the panel in the workspace."""
     import chip_smoke
 
     p = chip_smoke.condensed_problem(2, 3, torch.device("cpu"), h=h)
@@ -339,9 +341,9 @@ def test_fused_kernel_code_matches_split_bitwise(h, host_kernels):
 @pytest.fixture(scope="module")
 def lane_kernels(tmp_path_factory):
     """The kernels' code with the card's lane splits as host threads
-    (tests/admm_lanes.cpp): the invert kernel's 512 lanes, the fused
-    kernel's 256 and the iterate kernel's register path, 384 in 12 warps,
-    with shuffles."""
+    (tests/admm_lanes.cpp): the invert, fused and full kernels' 512 lanes
+    (the last two's register sweeps in 16 warps, with shuffles) and the
+    iterate kernel's register path, 384 in 12 warps."""
     return _build.build_host(str(Path(__file__).parent / "admm_lanes.cpp"),
                              tmp_path_factory.mktemp("admm_lanes"))
 
@@ -390,17 +392,41 @@ def test_iterate_kernel_code_lanes_match_one_lane(h, warm, lane_kernels, host_ke
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("h", [2, 16])
+@pytest.mark.parametrize("h", [2, 10, 16])
 def test_fused_kernel_code_lanes_match_one_lane(h, lane_kernels, host_kernels):
-    """The fused kernel's lane split (256 host threads) gives bitwise the
-    one-lane host build's (x, y), warm-started: its inverse runs the staged
-    products (not the 512-lane panels), which read the Newton-Schulz panel
-    before their first barrier."""
+    """The fused kernel's lane split (512 host threads: the invert kernel's
+    inverse, then each of 16 warps takes a 12-row tile of Kinv, 8 rows of it
+    to registers and 4 read from shared memory every sweep, and sweeps with
+    shuffles) gives bitwise the one-lane host build's (x, y), warm-started:
+    n = 24 leaves 14 warps idle, n = 120 six and most of each tile's columns
+    masked, n = 192 fills every tile."""
     cfg = admm_fast.AdmmFastConfig.inloop()
     ops, P0, init = _condensed(h, cfg, True, invert=False)
     lanes = admm_cuda.iterate_fused(ops, P0, cfg, init, lib=lane_kernels)
     one = admm_cuda.iterate_fused(ops, P0, cfg, init, lib=host_kernels)
     assert bool(torch.isfinite(lanes[0]).all())
+    for a, b in zip(lanes, one):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("warm", [False, True])
+@pytest.mark.parametrize("h", [2, 10, 16])
+def test_full_kernel_code_lanes_match_one_lane(h, warm, lane_kernels, host_kernels):
+    """The full kernel's lane split (512 host threads) gives bitwise the
+    one-lane host build's (U, lam), cold (zeros) and warm-started: its
+    set-up in X's buffer (each row's abs-max by one warp's shuffles, the
+    Ruiz scale in place, the 3x3 blocks), the inverse, and the register
+    sweeps of the fused kernel."""
+    import chip_smoke
+
+    p = chip_smoke.condensed_problem(3, 5, torch.device("cpu"), h=h)
+    cfg = admm_fast.AdmmFastConfig.inloop() if warm else admm_fast.AdmmFastConfig()
+    P0 = admm_fast.cone_pattern(p.mpc.friction_coef, h)
+    srow, l, u = admm_fast.row_bounds(p.table, p.robot.fz_max, h)
+    w = p.warm if warm else None
+    lanes = admm_cuda.solve_full(p.H, p.g, srow, l, u, P0, cfg, w, lib=lane_kernels)
+    one = admm_cuda.solve_full(p.H, p.g, srow, l, u, P0, cfg, w, lib=host_kernels)
+    assert bool(torch.isfinite(lanes[0]).all() and torch.isfinite(lanes[1]).all())
     for a, b in zip(lanes, one):
         assert torch.equal(a, b)
 

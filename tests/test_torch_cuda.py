@@ -126,6 +126,32 @@ def test_cuda_condensed_kernels_match_plain(cuda_device, B, h):
             assert invariants_ok(inv, float(p.robot.fz_max.max())), (backend, inv)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,h", [(256, 16), (130, 16), (256, 10)])
+def test_cuda_fused_kernel_matches_split_bitwise(cuda_device, B, h):
+    """The fused kernel runs the invert kernel's inverse and sweeps on Kinv
+    in registers in the iterate kernel's summation order, so on the card
+    its scaled (x, y) equal the split path's (invert_spd, then iterate) bit
+    for bit, cold and warm-started: every register tile full (h=16), over a
+    ragged batch, and at h=10 (n=120, six warps idle)."""
+    p = condensed_problem(B, 11, cuda_device, h=h)
+    args = (p.H, p.g, p.table, p.robot.fz_max, p.mpc)
+    P0 = admm_fast.cone_pattern(p.mpc.friction_coef, h)
+    for w, cfg in ((None, admm_fast.AdmmFastConfig()),
+                   (p.warm, admm_fast.AdmmFastConfig.inloop())):
+        kkt = admm_fast.setup(*args, cfg, invert=False)
+        init = None if w is None else admm_fast.warm_init(kkt, P0, w)
+        before = dict(admm_cuda.LAUNCHES)
+        fused = admm_cuda.iterate_fused(kkt, P0, cfg, init)
+        split = admm_cuda.invert_iterate(kkt, P0, cfg, init)
+        torch.cuda.synchronize()
+        assert {k: admm_cuda.LAUNCHES[k] - before[k] for k in before} == {
+            "invert_spd": 1, "iterate": 1, "iterate_fused": 1, "solve_full": 0}
+        assert bool(torch.isfinite(fused[0]).all() and torch.isfinite(fused[1]).all())
+        for a, b in zip(fused, split):
+            assert torch.equal(a, b)
+
+
 def _assert_bitwise(a, b):
     tree.tree_map(lambda x, y: torch.testing.assert_close(x, y, rtol=0, atol=0), a, b)
 
