@@ -109,10 +109,28 @@ result):
    the CPU.  12c, ``srb_env.rollout`` with ``"admm"`` and ``"ipm"`` on phase
    3's scenarios, 1000 ticks (cut from 3000): finite, none diverged, >=
    99% in the band over the last 250 ticks (tests/test_h16_config.py:61-69
-   without the displacement term); the period and the eager solve tick.
+   without the displacement term); the period and the eager solve tick;
+13. the sharded sweep (``parallel/{mesh,launch,checkpoint}.py``), two ranks
+   on the one card over gloo, each a process of this script started with
+   torch's launcher variables (``chip_smoke.py --worker ...``; the kernels
+   are built here first): 13a ``solve_sweep_step`` with ``admm_fast`` and
+   ``riccati``, B=4096 global, h=10, against the unsharded solve here, held
+   to tests/_multihost_worker.py's bars (elementwise 2.0 N, vertical
+   support 0.5 N, mean |U| 0.01; tests/test_sharding.py:37's 1e-5 and the
+   differing elements printed), each rank launching the solver's kernels;
+   13d, alongside it, one NCCL rank (world size 1) through
+   ``init_distributed``, its reductions bitwise those of no group and a
+   short ``rollout_sweep`` over the group; 13b the sweep entry point
+   (``examples/sweep.py``), Aliengo, h=10, B=4096 global over trotting10 /
+   pacing10 / bounding8, 3 chunks of 500 ticks with a checkpoint each:
+   per-gait survival and tracking at phase 10's bars, no divergence, each
+   rank launching the invert and iterate kernels; its ticks/s, checkpoint
+   bytes and save times; 13c the same stopped after one chunk and resumed
+   by fresh processes, its final checkpoint bitwise 13b's; and the cost of
+   a rank's drawing the global batch's sensor noise.
 
 The last lines are the kernel summary and the device record.  Imports
-torch, numpy and the port only.
+torch, numpy and the port only.  ``--worker`` runs one process of phase 13.
 """
 from __future__ import annotations
 
@@ -120,6 +138,7 @@ import ctypes
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -134,7 +153,7 @@ from pympc_quadruped_tpu_torch.env import fullorder, srb_env, terrain
 from pympc_quadruped_tpu_torch.estimation import kf
 from pympc_quadruped_tpu_torch.loop import run_ticks
 from pympc_quadruped_tpu_torch.models import Command, Gaits, a1, aliengo, default_mpc_params
-from pympc_quadruped_tpu_torch.parallel import sweep
+from pympc_quadruped_tpu_torch.parallel import checkpoint, launch, sweep
 from pympc_quadruped_tpu_torch.ops import condense, lie, srb
 from pympc_quadruped_tpu_torch.ops.kin import RobotObs
 from pympc_quadruped_tpu_torch.ops.qp import admm_cuda, admm_fast, cones, ipm, riccati, riccati_cuda
@@ -1331,6 +1350,386 @@ def phase_parity_closed_loop(dev, card, solver):
     return dict(B=B, period_ms=period, solve_tick_ms=solve_tick, in_band=share, wall_s=wall)
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the sharded sweep (parallel/{mesh,launch,checkpoint}.py)
+# ---------------------------------------------------------------------------
+
+#: Phase 13's global batch, horizon, gaits and ranks (two ranks share the card).
+SH_B, SH_H, SH_RANKS = 4096, 10, 2
+SH_GAITS = ["trotting10", "pacing10", "bounding8"]
+#: 13b's chunks (cut 13b before any earlier phase): 3 x 500 ticks.
+SH_SECONDS, SH_CHUNK = 1.5, 500
+#: tests/_multihost_worker.py's bars for a sharded against an unsharded
+#: solve: elementwise [N], each scenario's first-step vertical support [N],
+#: the mean |U| [N]; and tests/test_sharding.py:37's elementwise bar.
+SH_ELEM_BAR, SH_SUPPORT_BAR, SH_MEAN_BAR, SH_EXACT_BAR = 2.0, 0.5, 0.01, 1e-5
+#: 13a's elementwise bar [N] for each solver, inside SH_ELEM_BAR: riccati's
+#: rows are bitwise the unsharded rows; admm_fast's differ because the
+#: condensing's batched GEMMs round by batch size (PERF.md section 7), by
+#: 1.74e-2 N at most on the H100, held to about three times that.
+SH_SOLVER_BAR = {"riccati": SH_EXACT_BAR, "admm_fast": 0.05}
+SH_SOLVERS = ("admm_fast", "riccati")
+
+
+def sweep_solve_inputs(B, h, dev, seed=13):
+    """Trot-like (x_t, yaw, feet, X_ref, table) for ``solve_sweep_step``, made
+    with numpy from ``seed`` (the family of tests/test_torch_condense.py's
+    inputs), TROTTING10's stance table at a random phase per scenario."""
+    rng = np.random.default_rng(seed)
+    yaw = rng.uniform(-0.3, 0.3, B)
+    feet = (np.array([[0.24, 0.13, -0.38], [0.24, -0.13, -0.38],
+                      [-0.24, 0.13, -0.38], [-0.24, -0.13, -0.38]])[None]
+            + rng.normal(scale=0.03, size=(B, 4, 3)))
+    x_t = np.concatenate([rng.normal(scale=0.05, size=(B, 2)), yaw[:, None],
+                          rng.normal(scale=0.02, size=(B, 2)),
+                          0.38 + rng.normal(scale=0.01, size=(B, 1)),
+                          rng.normal(scale=0.3, size=(B, 3)),
+                          1.2 + rng.normal(scale=0.2, size=(B, 1)),
+                          rng.normal(scale=0.1, size=(B, 2)), np.full((B, 1), -9.81)], axis=1)
+    X_ref = np.zeros((B, h, 13))
+    X_ref[:, :, 2] = yaw[:, None]
+    X_ref[:, :, 3] = x_t[:, 3:4] + 0.06 * np.arange(h)
+    X_ref[:, :, 5], X_ref[:, :, 9], X_ref[:, :, 12] = 0.38, 1.2, -9.81
+    seg = (rng.integers(0, 10, B)[:, None] + np.arange(h)) % 10 < 5          # (B,h)
+    table = np.stack([seg, ~seg, ~seg, seg], axis=-1).reshape(B, 4 * h)
+    T = lambda a: torch.tensor(np.asarray(a), dtype=torch.float32, device=dev)
+    return tuple(map(T, (x_t, yaw, feet, X_ref.reshape(B, h * 13), table)))
+
+
+def differing_leaves(a, b) -> list:
+    """Paths of the tensor leaves of two trees that are not bit for bit equal."""
+    fa, fb = tree.flatten(a), tree.flatten(b)
+    check(fa.keys() == fb.keys(), "the trees differ in structure")
+    return [k for k in fa if not torch.equal(fa[k], fb[k])]
+
+
+def worker_json(out: str, kind: str) -> dict:
+    rows = [json.loads(l) for l in out.splitlines() if l.startswith('{"worker": "%s"' % kind)]
+    check(len(rows) == 1, f"a {kind} worker printed no result:\n{out[-2000:]}")
+    return rows[0]
+
+
+def worker_solve(rank, nprocs, port, outdir):
+    """13a, one rank: the global batch made from the seed, this rank's rows
+    solved with each solver, the rows saved for the parent."""
+    from pympc_quadruped_tpu_torch.parallel import launch, mesh as mesh_lib
+
+    backend = launch.init_distributed(f"localhost:{port}", nprocs, rank)
+    mesh = launch.global_data_mesh()
+    dev = mesh.device
+    robot = tree.tile(aliengo(device=dev), SH_B)
+    args = mesh_lib.shard_global_batch((robot, *sweep_solve_inputs(SH_B, SH_H, dev)), mesh)
+    mpc = default_mpc_params(SH_H, device=dev)
+    rows, launches = {}, {}
+    for solver in SH_SOLVERS:
+        sweep.solve_sweep_step(args[0], mpc, *args[1:], solver=solver)   # warm-up
+        torch.cuda.synchronize()
+        reset_launches()
+        rows[solver] = sweep.solve_sweep_step(args[0], mpc, *args[1:], solver=solver).cpu()
+        launches[solver] = {k: v for k, v in kernel_launches().items() if v}
+    torch.save(rows, os.path.join(outdir, f"solve_rank{rank}.pt"))
+    print(json.dumps({"worker": "solve", "rank": rank, "backend": backend, "device": str(dev),
+                      "launches": launches}), flush=True)
+    torch.distributed.destroy_process_group()
+
+
+def worker_sweep(argv):
+    """13b/13c, one rank: the port's sweep entry point, its checkpoint saves
+    timed, the kernel launches of its run counted."""
+    from pympc_quadruped_tpu_torch.examples import sweep as entry
+    from pympc_quadruped_tpu_torch.parallel import checkpoint
+
+    Ckpt = checkpoint.SweepCheckpointer
+    saves, writes = [], []
+
+    def timed(fn, into):
+        def call(*a, **k):
+            t0 = time.perf_counter()
+            fn(*a, **k)
+            into.append((time.perf_counter() - t0) * 1e3)
+        return call
+
+    Ckpt.save, Ckpt._write = timed(Ckpt.save, saves), timed(Ckpt._write, writes)
+    reset_launches()
+    entry.main(argv)
+    print(json.dumps({"worker": "sweep", "rank": int(os.environ["RANK"]),
+                      "launches": kernel_launches(), "save_ms": saves, "write_ms": writes}),
+          flush=True)
+
+
+def worker_nccl(port):
+    """13d: one NCCL rank (world size 1) through ``init_distributed``, the
+    sweep's reductions against the same reductions with no group, and a
+    short ``rollout_sweep`` over the group."""
+    from pympc_quadruped_tpu_torch.parallel import launch, mesh as mesh_lib
+
+    backend = launch.init_distributed(f"localhost:{port}", 1, 0)
+    mesh = launch.global_data_mesh()
+    local = mesh_lib.DataMesh(None, 0, 1, mesh.device)
+    x = torch.randn((500, 4096), generator=torch.Generator(device=mesh.device).manual_seed(5),
+                    device=mesh.device)
+    reductions = lambda m: (mesh_lib.global_mean({"x": x, "alive": x > 0}, m),
+                            mesh_lib.global_max(x, m), mesh_lib.global_sum(x[:, :8], m))
+    differ = differing_leaves(reductions(mesh), reductions(local))
+    B, ticks = 512, 200
+    robot = tree.tile(aliengo(device=mesh.device), B)
+    gait, cmd, _ = sweep.mixed_gait_batch(SH_GAITS, B, mesh.device)
+    reset_launches()
+    _, summary = sweep.rollout_sweep(robot, default_mpc_params(SH_H, device=mesh.device), gait,
+                                     cmd, ticks, mesh=mesh)
+    print(json.dumps({"worker": "nccl", "backend": backend, "size": mesh.size, "B": B,
+                      "ticks": ticks,
+                      "reductions_differ": differ, "launches": kernel_launches(),
+                      "summary": {k: float(v) for k, v in summary.items()}}), flush=True)
+    torch.distributed.destroy_process_group()
+
+
+def sweep_report(out: str) -> dict:
+    """The entry point's printed lines: backend, chunks, ticks/s, resume,
+    the divergence events and the per-gait lines."""
+    first = next(l for l in out.splitlines() if l.startswith("devices="))
+    rep = {"backend": first.split("backend=")[1].split()[0], "gaits": {}, "resumed": None}
+    for line in out.splitlines():
+        s = line.strip()
+        if s.startswith("chunks="):
+            rep["chunks"] = s.split()[0].split("=")[1]
+            rep["ticks_per_s"] = float(s.split("ticks/s=")[1].replace(",", ""))
+        elif s.startswith("resuming at chunk"):
+            rep["resumed"] = s
+        elif s.startswith("divergence_events:"):
+            rep["divergence_max"] = max(float(w.split("=")[1]) for w in s.split()[1:])
+        elif s.startswith("gait "):
+            name = s.split()[1].rstrip(":")
+            rep["gaits"][name] = {w.split("=")[0]: float(w.split("=")[1]) for w in s.split()[2:]}
+    return rep
+
+
+def riccati_vs_plain_h10(robot, mpc, inputs, B):
+    """13a's Riccati kernel against its plain version on the first ``B``
+    rows of 13a's inputs (h=10): phase 2's max|dU| and first-step fz bars."""
+    robot = tree.tree_map(lambda a: a[:B], robot)
+    x_t, yaw, feet, X_ref, table = (a[:B] for a in inputs)
+    Ad, Bd = srb.discretize(*srb.state_space(robot, yaw, feet), mpc.dt_predict)
+    U_k, U_p = (riccati.solve_batch(Ad, Bd, x_t, X_ref, table, robot.fz_max, mpc, backend=b)
+                .reshape(B, mpc.horizon, 12) for b in ("cuda", "torch"))
+    fz_k, fz_p = U_k[:, 0, 2::3], U_p[:, 0, 2::3]
+    fz_rel = float(((fz_k - fz_p).abs() / fz_p.abs().clamp(min=20.0)).max())
+    u_err = float((U_k - U_p).abs().max())
+    check(bool(torch.isfinite(U_k).all()), f"13a riccati B={B}: non-finite kernel output")
+    return u_err, fz_rel
+
+
+def admm_fast_stages(robot, mpc, inputs, half):
+    """Where ``admm_fast``'s solve of the first ``half`` rows parts from
+    the same rows of the whole batch's solve: each stage of the split path
+    runs at both batch sizes on the same input (the whole batch's previous
+    stage), and its output rows are compared.  ``(stage, differing
+    elements, elements, max abs difference)`` per stage."""
+    x_t, yaw, feet, X_ref, table = inputs
+    cfg = admm_fast.AdmmFastConfig()
+    P0 = admm_fast.cone_pattern(mpc.friction_coef, mpc.horizon).to(x_t)
+    rows = lambda t: t[:half].contiguous()
+    report = []
+
+    def stage(name, fn, *args):
+        full = fn(*args)
+        part = fn(*(tree.tree_map(rows, a) for a in args))
+        full_t, part_t = (o if isinstance(o, tuple) else (o,) for o in (full, part))
+        d = [(rows(a) - b).abs() for a, b in zip(full_t, part_t)]
+        report.append((name, sum(int((x > 0).sum()) for x in d), sum(x.numel() for x in d),
+                       max(float(x.max()) for x in d)))
+        return full
+
+    Ad, Bd = stage("srb.discretize", lambda rb, yw, ft: srb.discretize(
+        *srb.state_space(rb, yw, ft), mpc.dt_predict), robot, yaw, feet)
+    Sx, Su = stage("condense.rollout_matrices",
+                   lambda a, b: condense.rollout_matrices(a, b, mpc.horizon), Ad, Bd)
+    H, g = stage("condense.qp_cost", lambda *a: condense.qp_cost(*a, mpc), Sx, Su, x_t, X_ref)
+    H, g = stage("cones.mask_cost", cones.mask_cost, H, g, cones.variable_mask(table, mpc))
+    ops = stage("admm_fast.setup", lambda *a: tuple(admm_fast.setup(*a, mpc, cfg, invert=False)),
+                H, g, table, robot.fz_max)
+    Kinv = stage("admm_cuda.invert_spd",
+                 lambda K: admm_cuda.invert_spd(K, cfg.newton_schulz_iters), ops[0])
+    stage("admm_cuda.iterate",
+          lambda *o: admm_cuda.iterate(admm_fast.AdmmOperands(*o), P0, cfg), Kinv, *ops[1:])
+    return report
+
+
+def phase_sharded(dev, card):
+    """Phase 13: 13a ``solve_sweep_step`` over 2 gloo ranks on the one card
+    against the unsharded solve here, with 13d (one NCCL rank) alongside;
+    13b the sweep entry point over 2 ranks; 13c the same stopped after one
+    chunk and resumed, bitwise 13b's final checkpoint."""
+    t_phase = time.perf_counter()
+    here = os.path.abspath(__file__)
+    work = os.path.join(os.path.dirname(here), "chiprun_out", "phase13")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    py = [sys.executable, here, "--worker"]
+
+    # 13a + 13d: started together.
+    port, port_nccl = launch.free_port(), launch.free_port()
+    jobs = [(py + ["solve", str(r), str(SH_RANKS), str(port), work],
+             launch.launcher_env(port, r, SH_RANKS)) for r in range(SH_RANKS)]
+    jobs.append((py + ["nccl", str(port_nccl)], launch.launcher_env(port_nccl, 0, 1)))
+    t0 = time.perf_counter()
+    outs = launch.run_ranks(jobs, timeout=400)
+    wall_a = time.perf_counter() - t0
+    solve = [worker_json(o, "solve") for o in outs[:SH_RANKS]]
+    nccl = worker_json(outs[SH_RANKS], "nccl")
+    rows = [torch.load(os.path.join(work, f"solve_rank{r}.pt"), weights_only=True)
+            for r in range(SH_RANKS)]
+    robot = tree.tile(aliengo(device=dev), SH_B)
+    inputs = sweep_solve_inputs(SH_B, SH_H, dev)
+    mpc = default_mpc_params(SH_H, device=dev)
+    res_a = {}
+    for solver in SH_SOLVERS:
+        U_ref = sweep.solve_sweep_step(robot, mpc, *inputs, solver=solver).cpu()
+        U = torch.cat([r[solver] for r in rows])
+        d = (U - U_ref).abs()
+        support = (U.reshape(SH_B, 4, 3)[..., 2].sum(-1)
+                   - U_ref.reshape(SH_B, 4, 3)[..., 2].sum(-1)).abs().max()
+        mean_err = abs(float(U.abs().mean()) - float(U_ref.abs().mean()))
+        res_a[solver] = dict(max_abs_err=float(d.max()), differing=int((d > 0).sum()),
+                             elements=d.numel(), support_err=float(support), mean_err=mean_err,
+                             launches=[s["launches"][solver] for s in solve])
+        print(f"phase 13a: solve_sweep_step solver={solver} over {SH_RANKS} gloo ranks on one "
+              f"card (backends {[s['backend'] for s in solve]}), B={SH_B} global, h={SH_H}, "
+              f"against the unsharded solve: max|dU| {float(d.max()):.3e} N with "
+              f"{int((d > 0).sum())} of {d.numel()} elements differing (tests/test_sharding.py:37 "
+              f"bar {SH_EXACT_BAR} {'met' if float(d.max()) <= SH_EXACT_BAR else 'not met'}; "
+              f"this solver's bar {SH_SOLVER_BAR[solver]}), "
+              f"support {float(support):.3e} N (bar {SH_SUPPORT_BAR}), mean|U| {mean_err:.3e} "
+              f"(bar {SH_MEAN_BAR}); each rank's launches {res_a[solver]['launches']} [{card}]",
+              flush=True)
+        check(float(d.max()) <= SH_SOLVER_BAR[solver] and float(support) < SH_SUPPORT_BAR
+              and mean_err < SH_MEAN_BAR, f"phase 13a: sharded {solver} outside the bars")
+        on_path = ("riccati_admm",) if solver == "riccati" else ("invert_spd", "iterate")
+        check(all(s["launches"][solver].get(k, 0) > 0 for s in solve for k in on_path),
+              f"phase 13a: a rank did not launch {on_path}")
+    check(all(s["backend"] == "gloo" for s in solve), "phase 13a: two ranks on one card not gloo")
+    # The Riccati kernel at 13a's h=10, at the whole and the per-rank batch,
+    # against its plain version (phase 2 holds it at h=16 only).
+    for B in (SH_B, SH_B // SH_RANKS):
+        u_err, fz_rel = riccati_vs_plain_h10(robot, mpc, inputs, B)
+        res_a["riccati"][f"kernel_vs_plain_B{B}"] = dict(max_abs_err=u_err, fz_rel=fz_rel)
+        print(f"phase 13a: riccati_admm kernel against its plain version at h={SH_H}, B={B}, "
+              f"13a's inputs: max|dU|={u_err:.3e} N (bar {U_ABS_BAR}), first-step fz "
+              f"rel={fz_rel:.3e} (bar {FZ_REL_BAR}) [{card}]", flush=True)
+        check(u_err < U_ABS_BAR and fz_rel < FZ_REL_BAR,
+              f"phase 13a: the Riccati kernel disagrees with the plain version at h={SH_H} B={B}")
+    # Where admm_fast's rows of a rank part from the unsharded rows.
+    stages = admm_fast_stages(robot, mpc, inputs, SH_B // SH_RANKS)
+    res_a["admm_fast"]["stages"] = stages
+    print(f"phase 13a: admm_fast, each stage at B={SH_B // SH_RANKS} against B={SH_B}'s rows on "
+          "the same input (differing elements of all, max abs): "
+          + "; ".join(f"{n} {k} of {t}, {m:.3e}" for n, k, t, m in stages) + f" [{card}]",
+          flush=True)
+    print(f"phase 13d: one rank through init_distributed: backend {nccl['backend']}, world size "
+          f"{nccl['size']}; the sweep's reductions over the group against no group: "
+          f"{nccl['reductions_differ'] or 'bitwise equal'}; rollout_sweep B={nccl['B']} "
+          f"h={SH_H} {nccl['ticks']} ticks over the group: {nccl['summary']}, launches "
+          f"{ {k: v for k, v in nccl['launches'].items() if v} } ({wall_a:.1f} s for 13a and "
+          f"13d together) [{card}]", flush=True)
+    check(nccl["backend"] == "nccl" and nccl["size"] == 1 and not nccl["reductions_differ"]
+          and nccl["summary"]["survival_frac"] == 1.0, "phase 13d: the NCCL rank failed")
+
+    # 13b: the entry point over 2 ranks, straight through.
+    entry_args = ["--batch", str(SH_B), "--seconds", str(SH_SECONDS), "--chunk-ticks",
+                  str(SH_CHUNK), "--gaits", ",".join(SH_GAITS), "--seed", "0"]
+    n_chunks = int(SH_SECONDS * 1000) // SH_CHUNK
+
+    def entry(ckpt_dir, extra=()):
+        port = launch.free_port()
+        outs = launch.run_ranks([(py + ["sweep", "--ckpt-dir", ckpt_dir, *entry_args, *extra],
+                                  launch.launcher_env(port, r, SH_RANKS))
+                                 for r in range(SH_RANKS)], timeout=600)
+        return [sweep_report(o) for o in outs], [worker_json(o, "sweep") for o in outs]
+
+    straight, resumed = os.path.join(work, "straight"), os.path.join(work, "resumed")
+    t0 = time.perf_counter()
+    reps, workers = entry(straight)
+    wall_b = time.perf_counter() - t0
+    step_dir = os.path.join(straight, str(n_chunks))
+    ckpt_bytes = sum(os.path.getsize(os.path.join(step_dir, f)) for f in os.listdir(step_dir)
+                     if f.endswith(".pt"))
+    save_ms = [float(np.median(w["save_ms"])) for w in workers]
+    write_ms = [float(np.median(w["write_ms"])) for w in workers]
+    for r, (rep, w) in enumerate(zip(reps, workers)):
+        launches = {k: v for k, v in w["launches"].items() if v}
+        print(f"phase 13b: rank {r}: backend {rep['backend']}, chunks {rep['chunks']}, "
+              f"ticks/s {rep['ticks_per_s']:,.0f} (global batch over the wall; two ranks share "
+              f"one card, so this is no scaling figure), kernel launches {launches} [{card}]",
+              flush=True)
+        check(rep["chunks"] == f"{n_chunks}/{n_chunks}" and rep["backend"] == "gloo",
+              f"phase 13b: rank {r} did not run its chunks over gloo")
+        check(w["launches"]["invert_spd"] > 0 and w["launches"]["iterate"] > 0,
+              f"phase 13b: rank {r} launched no condensed kernel")
+        check(rep["divergence_max"] == 0.0, f"phase 13b: rank {r} saw divergence events")
+    check(reps[0]["gaits"] == reps[1]["gaits"], "phase 13b: the ranks' per-gait lines differ")
+    ticks = SH_SECONDS * 1e3
+    for name in SH_GAITS:
+        s = reps[0]["gaits"][name]
+        expect = sweep.GAIT_SWEEP_VX[name] * ticks * 1e-3
+        print(f"phase 13b: sweep entry point Aliengo h={SH_H} B={SH_B} over {SH_RANKS} ranks, "
+              f"{n_chunks} x {SH_CHUNK} ticks ({wall_b:.1f} s with start-up) {name}: n "
+              f"{int(s['n'])}, survival {s['survival']:.4f} (bar 1.0), mean_vel_err "
+              f"{s['mean_vel_err']:.4f} m/s (bar 0.3), fwd_disp {s['fwd_disp_m']:.2f} m (bar "
+              f"{0.6 * expect:.2f}) [{card}]", flush=True)
+        check(s["survival"] == 1.0 and s["mean_vel_err"] < 0.3
+              and s["fwd_disp_m"] > 0.6 * expect, f"phase 13b: {name} outside phase 10's bars")
+    print(f"phase 13b: checkpoint per step at B={SH_B}: {ckpt_bytes} bytes over {SH_RANKS} rank "
+          f"files; save (host copy, barriers, prune) median {save_ms} ms per rank, background "
+          f"write median {write_ms} ms per rank [{card}]", flush=True)
+
+    # 13c: stopped after one chunk, resumed by fresh processes.
+    t0 = time.perf_counter()
+    entry(resumed, ["--stop-after-chunks", "1"])
+    reps_c, _ = entry(resumed)
+    wall_c = time.perf_counter() - t0
+    check(all(r["resumed"] == f"resuming at chunk 1 (tick {SH_CHUNK})" for r in reps_c),
+          "phase 13c: the second run did not resume at chunk 1")
+    a, b = checkpoint.read_step(straight, n_chunks)[1], checkpoint.read_step(resumed, n_chunks)[1]
+    diffs = [", ".join(differing_leaves(x, y)) for x, y in zip(a, b)]
+    leaves = sum(len(x) for x in a)
+    print(f"phase 13c: stopped after chunk 1, resumed in fresh processes: final checkpoint (step "
+          f"{n_chunks}, {leaves} leaves over {SH_RANKS} ranks) against 13b's: "
+          f"{'; '.join(d for d in diffs if d) or 'bitwise equal'} ({wall_c:.1f} s) [{card}]",
+          flush=True)
+    check(not any(diffs), "phase 13c: the resumed sweep's final checkpoint differs")
+
+    # The cost of drawing the global batch's sensor noise on each rank.
+    draws = lambda rows: srb_env.sensor_draws(0, 0, SH_CHUNK, SH_B // SH_RANKS, dev, rows)
+    ms_local = cuda_ms(lambda: draws(None), warmup=1, reps=3)
+    ms_global = cuda_ms(lambda: draws((SH_B // SH_RANKS, SH_B)), warmup=1, reps=3)
+    shutil.rmtree(work)     # the checkpoints (~26 MB); kept when a check fails
+    wall = time.perf_counter() - t_phase
+    print(f"phase 13: a rank's sensor noise for one {SH_CHUNK}-tick chunk at B={SH_B} over "
+          f"{SH_RANKS} ranks: {ms_global:.3f} ms drawing the global rows and keeping its own, "
+          f"{ms_local:.3f} ms drawing only its count; phase 13 took {wall:.1f} s [{card}]",
+          flush=True)
+    return dict(solve=res_a, ticks_per_s=[r["ticks_per_s"] for r in reps],
+                backends=[r["backend"] for r in reps], ckpt_bytes=ckpt_bytes,
+                save_ms=save_ms, write_ms=write_ms,
+                launches={"13b": [w["launches"] for w in workers]},
+                noise_ms={"global_rows": ms_global, "own_rows": ms_local},
+                nccl=nccl, wall_s=wall)
+
+
+def worker(argv) -> int:
+    """``chip_smoke.py --worker solve|sweep|nccl ...``: one process of phase 13."""
+    kind, rest = argv[0], argv[1:]
+    if kind == "solve":
+        worker_solve(int(rest[0]), int(rest[1]), int(rest[2]), rest[3])
+    elif kind == "sweep":
+        worker_sweep(rest)
+    elif kind == "nccl":
+        worker_nccl(int(rest[0]))
+    else:
+        raise SystemExit(f"unknown worker {kind!r}")
+    return 0
+
+
 def entry_report(log: str, kernel: str) -> str:
     """ptxas's register and spill lines for one kernel's entry function,
     and the largest spill store of any function in the library (the
@@ -1348,6 +1747,8 @@ def entry_report(log: str, kernel: str) -> str:
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--worker"]:
+        return worker(sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card",
               file=sys.stderr)
@@ -1427,6 +1828,7 @@ def main() -> int:
     parity["rollout"] = {s: phase_parity_closed_loop(dev, card, s) for s in ("admm", "ipm")}
     parity["wall_s"] = time.perf_counter() - t0
     print(f"phase 12: the parity solvers took {parity['wall_s']:.1f} s [{card}]", flush=True)
+    sharded = phase_sharded(dev, card)
 
     kernels = [{
         "name": "riccati_admm", "route": "cuda",
@@ -1436,8 +1838,13 @@ def main() -> int:
         "launches_in": "rollout(solver='riccati'), 3000 ticks, 150 solves",
         "launches_run_ticks": ric_launches["riccati_admm"],
         "launches_fullorder": fo_launches["riccati_admm"],
-        "launches_fullorder_in": FO_LAUNCHES_IN["riccati"], "max_abs_err": max_err,
-        "err": "max|dU| [N] vs plain", **ric_times, "library_ms": None,
+        "launches_fullorder_in": FO_LAUNCHES_IN["riccati"],
+        "launches_sharded": sharded["solve"]["riccati"]["launches"],
+        "launches_sharded_in": "13a: each rank's one solve_sweep_step, B=2048 of 4096",
+        "max_abs_err": max(max_err, *(v["max_abs_err"] for k, v in sharded["solve"]["riccati"]
+                                      .items() if k.startswith("kernel_vs_plain"))),
+        "err": "max|dU| [N] vs plain; worst of h=16 (B=4096, 130) and h=10 (13a, B=4096, 2048)",
+        **ric_times, "library_ms": None,
     }]
     replaces = {"invert_spd": 242, "iterate": 38, "iterate_fused": 374, "solve_full": 417}
     shapes = "; worst of h=16 (B=4096, 130) and h=10 (B=4096)"
@@ -1458,12 +1865,17 @@ def main() -> int:
                             "timed solve_batch runs of its backend"),
             **({"launches_run_ticks": cond_launches[name],
                 "launches_fullorder": fo_launches[name],
-                "launches_fullorder_in": FO_LAUNCHES_IN["admm_fast"]} if on_loop else {}),
+                "launches_fullorder_in": FO_LAUNCHES_IN["admm_fast"],
+                "launches_sharded": [w[name] for w in sharded["launches"]["13b"]],
+                "launches_sharded_in": f"13b: each rank's sweep entry point, "
+                                       f"{int(SH_SECONDS * 1e3)} ticks, B=2048 of 4096"}
+               if on_loop else {}),
             "max_abs_err": cond_err[name], "err": errs[name], **cond_times[name],
         })
     print(json.dumps({"rollout": rollout_times}))
     print(json.dumps({"fullorder": fo_times}))
     print(json.dumps({"parity": parity}))
+    print(json.dumps({"sharded": sharded}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -160,15 +160,28 @@ def synthesize_sensors(
     return _sensors_from_draws(robot, state, forces, eps, noise)
 
 
-def sensor_draws(seed: int, tick0: int, num_ticks: int, batch: int, device) -> torch.Tensor:
+def sensor_draws(seed: int, tick0: int, num_ticks: int, batch: int, device,
+                 rows: tuple[int, int] | None = None) -> torch.Tensor:
     """(num_ticks, batch, 30) standard-normal draws of the rollout's sensor
     noise: tick ``tick0 + i``'s draws come from a generator seeded by
-    (``seed``, absolute tick), so a chunked run resumes bitwise."""
+    (``seed``, absolute tick), so a chunked run resumes bitwise.
+
+    ``rows = (first, global_batch)`` makes them the rows ``[first, first +
+    batch)`` of a global batch's draws: each tick draws all
+    ``global_batch`` rows and keeps these, so a rank of a sharded sweep
+    gets the noise its scenarios have in the unsharded run."""
+    first, total = (0, batch) if rows is None else rows
     out = torch.empty((num_ticks, batch, NOISE_DRAWS), dtype=torch.float32, device=device)
+    full = None if total == batch else torch.empty((total, NOISE_DRAWS), dtype=torch.float32,
+                                                   device=device)
     gen = torch.Generator(device=device)
     for i in range(num_ticks):
         gen.manual_seed(((int(seed) & 0xFFFFFFFF) << 32) | ((tick0 + i) & 0xFFFFFFFF))
-        torch.randn((batch, NOISE_DRAWS), generator=gen, out=out[i])
+        if full is None:
+            torch.randn((batch, NOISE_DRAWS), generator=gen, out=out[i])
+        else:
+            torch.randn((total, NOISE_DRAWS), generator=gen, out=full)
+            out[i].copy_(full[first:first + batch])
     return out
 
 
@@ -287,7 +300,7 @@ class RolloutLoop(GraphLoop):
     def __init__(self, robot, mpc, gait, cmd, num_ticks, init_state=None,
                  solver=ctrl.DEFAULT_SOLVER, terrain=None, auto_reset=True, estimator=None,
                  sensor_noise=None, key=None, carry_in=None, tick0=0, cmd_ramp_ticks=None,
-                 contact_source="plan", solver_cfg=None):
+                 contact_source="plan", solver_cfg=None, noise_rows=None):
         ctrl.check_solver(solver)
         if contact_source not in ("plan", "measured"):
             raise ValueError(f"unknown contact_source {contact_source!r}")
@@ -310,7 +323,7 @@ class RolloutLoop(GraphLoop):
         self.init_state = init_state
         self.carry0 = init_full_carry(robot, mpc, init_state, estimator)
         start = self.carry0 if carry_in is None else carry_in
-        self.draws = (sensor_draws(key, self.tick0, self.num_ticks, B, dev)
+        self.draws = (sensor_draws(key, self.tick0, self.num_ticks, B, dev, noise_rows)
                       if self.use_kf else None)
         keys = ["vel_err", "height", "upright", "diverged"]
         if self.use_kf:
@@ -397,6 +410,7 @@ def rollout(
     cmd_ramp_ticks: int | None = None,
     contact_source: str = "plan",
     solver_cfg: dict | None = None,
+    noise_rows: tuple[int, int] | None = None,
 ):
     """Closed-loop batched rollout of ``num_ticks`` ticks.
 
@@ -411,10 +425,12 @@ def rollout(
     filter on noisy synthesized sensors (``sensor_noise``, default
     ``SensorNoise.default()``) instead of ground truth, and adds
     ``est_pos_err`` and ``est_vel_err``.  ``key`` is an int seed: the noise
-    of each tick is drawn from (seed, absolute tick).  ``contact_source``
-    gates the filter's leg odometry on the planned stance (``"plan"``) or on
-    a touch signal from the held GRFs (``"measured"``, adding
-    ``contact_mismatch``).
+    of each tick is drawn from (seed, absolute tick); on a rank of a
+    sharded sweep, ``noise_rows = (first row, global batch)`` gives its rows
+    the noise they have in the unsharded run (:func:`sensor_draws`).
+    ``contact_source`` gates the filter's leg odometry on the planned stance
+    (``"plan"``) or on a touch signal from the held GRFs (``"measured"``,
+    adding ``contact_mismatch``).
 
     Chunked runs resume bitwise: pass the previous chunk's env state as
     ``init_state``, its full carry (``return_full_carry=True``, the
@@ -428,7 +444,7 @@ def rollout(
     (:class:`RolloutLoop`); a capture or replay failure raises."""
     loop = RolloutLoop(robot, mpc, gait, cmd, num_ticks, init_state, solver, terrain,
                        auto_reset, estimator, sensor_noise, key, carry_in, tick0,
-                       cmd_ramp_ticks, contact_source, solver_cfg)
+                       cmd_ramp_ticks, contact_source, solver_cfg, noise_rows)
     for _ in range(num_ticks):
         loop.step()
     return loop.result(return_full_carry)

@@ -12,22 +12,33 @@ import dataclasses
 import torch
 
 
-def tree_map(fn, obj, *rest):
-    """Apply ``fn`` to every tensor leaf of ``obj`` (and the matching leaves
-    of ``rest``, which must share its structure)."""
+def tree_map_with_path(fn, obj, *rest, path: tuple = ()):
+    """Apply ``fn(path, leaf, *matching leaves of rest)`` to every tensor
+    leaf of ``obj`` (``rest`` must share its structure); ``path`` is the
+    tuple of field names, tuple indices and dict keys (as strings) from the
+    root to the leaf."""
     if dataclasses.is_dataclass(obj):
         return dataclasses.replace(obj, **{
-            f.name: tree_map(fn, getattr(obj, f.name),
-                             *(getattr(r, f.name) for r in rest))
+            f.name: tree_map_with_path(fn, getattr(obj, f.name),
+                                       *(getattr(r, f.name) for r in rest),
+                                       path=path + (f.name,))
             for f in dataclasses.fields(obj)
         })
     if isinstance(obj, tuple):
-        return tuple(tree_map(fn, o, *(r[i] for r in rest)) for i, o in enumerate(obj))
+        return tuple(tree_map_with_path(fn, o, *(r[i] for r in rest), path=path + (str(i),))
+                     for i, o in enumerate(obj))
     if isinstance(obj, dict):
-        return {k: tree_map(fn, o, *(r[k] for r in rest)) for k, o in obj.items()}
+        return {k: tree_map_with_path(fn, o, *(r[k] for r in rest), path=path + (str(k),))
+                for k, o in obj.items()}
     if isinstance(obj, torch.Tensor):
-        return fn(obj, *rest)
+        return fn(path, obj, *rest)
     return obj
+
+
+def tree_map(fn, obj, *rest):
+    """Apply ``fn`` to every tensor leaf of ``obj`` (and the matching leaves
+    of ``rest``, which must share its structure)."""
+    return tree_map_with_path(lambda _, *leaves: fn(*leaves), obj, *rest)
 
 
 def to(obj, device):
@@ -40,3 +51,15 @@ def tile(obj, batch: int):
     return tree_map(
         lambda t: t.expand((batch,) + tuple(t.shape)).contiguous(), obj
     )
+
+
+def flatten(obj) -> dict:
+    """Every tensor leaf of ``obj`` keyed by its path, joined with ``/``."""
+    leaves = {}
+
+    def visit(path, leaf):
+        leaves["/".join(path)] = leaf
+        return leaf
+
+    tree_map_with_path(visit, obj)
+    return leaves
