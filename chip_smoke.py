@@ -127,7 +127,26 @@ result):
    rank launching the invert and iterate kernels; its ticks/s, checkpoint
    bytes and save times; 13c the same stopped after one chunk and resumed
    by fresh processes, its final checkpoint bitwise 13b's; and the cost of
-   a rank's drawing the global batch's sensor noise.
+   a rank's drawing the global batch's sensor noise;
+14. the user surfaces on the card.  14a, the MuJoCo example's controller
+   adapter (``examples/mujoco_closed_loop.make_torch_controller``) at B=1,
+   h=10, TROTTING10 at 1.2 m/s, ``admm_fast``, 2000 ticks, driving
+   ``fullorder.physics_step`` at B=1 through host numpy each tick (the
+   card's machine has no MuJoCo): phase 11b's band, 100 launches each of
+   the invert and iterate kernels, the first five B=1 solves against the
+   plain version with phase 5's invariants, and the controller tick's p50
+   and p99 (solve ticks and others) beside the reference's 20 ms and 1 ms,
+   not gated.  14b, ``examples/batch_viz.record_batch`` at B=4096 (mixed
+   trotting10 / pacing10 / bounding8, a speed ramp), 38 frames of 40 ticks
+   (cut from the example's 3 s): one graph capture, the per-gait share that
+   never diverges and ends in a height band at or above the JAX package's
+   less one point, ticks/s.  14c (no kernel), the SE(3)/PoE functions of
+   ``ops/lie.py`` on the card against the CPU, the PoE leg FK against
+   ``kin``, and ``condense.qp_cost_toeplitz`` against the Gram condensing
+   at B=4096, h=16, with both times.  14d, through each kernel backend
+   (``pallas_split``, ``pallas_fused``, ``pallas_full``, ``riccati``), one
+   NaN scenario of a B=4096 batch leaves every other scenario bitwise
+   unchanged.
 
 The last lines are the kernel summary and the device record.  Imports
 torch, numpy and the port only.  ``--worker`` runs one process of phase 13.
@@ -149,12 +168,14 @@ import torch
 from pympc_quadruped_tpu_torch import _build, engine, tree
 from pympc_quadruped_tpu_torch.control import controller as ctrl
 from pympc_quadruped_tpu_torch.control import refmpc
-from pympc_quadruped_tpu_torch.env import fullorder, srb_env, terrain
+from pympc_quadruped_tpu_torch.env import fullorder, graph_loop, mjcf, srb_env, terrain
 from pympc_quadruped_tpu_torch.estimation import kf
+from pympc_quadruped_tpu_torch.examples.batch_viz import record_batch
+from pympc_quadruped_tpu_torch.examples.mujoco_closed_loop import OBS_KEYS, make_torch_controller
 from pympc_quadruped_tpu_torch.loop import run_ticks
 from pympc_quadruped_tpu_torch.models import Command, Gaits, a1, aliengo, default_mpc_params
 from pympc_quadruped_tpu_torch.parallel import checkpoint, launch, sweep
-from pympc_quadruped_tpu_torch.ops import condense, lie, srb
+from pympc_quadruped_tpu_torch.ops import condense, kin, lie, srb
 from pympc_quadruped_tpu_torch.ops.kin import RobotObs
 from pympc_quadruped_tpu_torch.ops.qp import admm_cuda, admm_fast, cones, ipm, riccati, riccati_cuda
 from pympc_quadruped_tpu_torch.utils import observability, profiling
@@ -948,6 +969,36 @@ def fullorder_in_band(metrics: dict, x: torch.Tensor, band) -> torch.Tensor:
             & (up > up_bar) & (x > x_bar))
 
 
+#: Phase 14b: ``examples/batch_viz.record_batch`` at the main path's batch:
+#: Aliengo, h=10, the default solver, the example's mixed gaits (scenario i
+#: runs BV_GAITS[i % 3]) and speed ramp (0.6-1.0 x BV_VX down the rows),
+#: from the nominal stance, frames every BV_FRAME_TICKS ticks.  The
+#: example's 3.0 s are cut to 1.5 s to fit the time limit; its loop runs
+#: whole frames (range(0, 1500, 40): 38 frames, 1520 ticks).
+BV_B, BV_SECONDS, BV_FRAME_TICKS, BV_VX = 4096, 1.5, 40, 0.6
+BV_FRAMES = len(range(0, int(BV_SECONDS * 1000), BV_FRAME_TICKS))
+BV_TICKS = BV_FRAMES * BV_FRAME_TICKS
+BV_GAITS = ("trotting10", "pacing10", "bounding8")
+#: The band on the mean trunk height over the last FO_TAIL ticks: the
+#: MuJoCo gate's for pacing and bounding (tests/test_mujoco_e2e.py:90).
+BV_HEIGHT_BAND = (0.33, 0.45)
+
+
+def batch_viz_in_band(metrics: dict) -> torch.Tensor:
+    """(B,) bool: no divergence on any tick, a finite height on every tick,
+    and the mean height over the last FO_TAIL ticks inside BV_HEIGHT_BAND."""
+    lo, hi = BV_HEIGHT_BAND
+    height = metrics["height"]
+    h = height[-FO_TAIL:].mean(dim=0)
+    return (torch.isfinite(height).all(dim=0) & ~metrics["diverged"].any(dim=0)
+            & (h > lo) & (h < hi))
+
+
+def per_gait_share(ok: torch.Tensor) -> dict:
+    """The in-band share of each of BV_GAITS' scenarios (i % 3)."""
+    return {name: float(ok[i::3].float().mean()) for i, name in enumerate(BV_GAITS)}
+
+
 FO_LAUNCHES_IN = {
     "riccati": f"fullorder.rollout(solver='riccati'), h=16, {FO_TICKS} ticks, "
                f"{FO_TICKS // PERIOD} solves (phase 11a)",
@@ -1716,6 +1767,347 @@ def phase_sharded(dev, card):
                 nccl=nccl, wall_s=wall)
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the single-robot adapter, the mixed-gait grid, SE(3) and the
+# Toeplitz condensing, NaN isolation
+# ---------------------------------------------------------------------------
+
+#: 14a: the MuJoCo example's defaults (B=1, h=10, TROTTING10 at 1.2 m/s,
+#: ``admm_fast``), phase 11b's configuration, for SR_TICKS ticks on the
+#: full-order plant; the first SR_CHECKED_SOLVES solves are held against the
+#: plain version.  The reference's limits: 20 ms a solve, 1 ms a tick
+#: (BASELINE.md:13-14).
+SR_TICKS, SR_CHECKED_SOLVES = 2000, 5
+SR_SOLVE_LIMIT_MS, SR_TICK_LIMIT_MS = 20.0, 1.0
+#: 14b's bars: the JAX package's per-gait share on the same 4096 scenarios
+#: (tools/fullorder_reference_share.py --part 14b, its line in
+#: tools/fullorder_reference_share.jsonl) less one point, as phase 11.
+BV_REFERENCE_SHARE = {"trotting10": 1.0, "pacing10": 1.0, "bounding8": 1.0}
+#: 14c: the SE(3)/PoE functions on the card against the CPU (f32 sin/cos
+#: and products differ by a few ulp at O(1) values), and the PoE leg FK
+#: against the closed-form one.
+SE3_BAR = 1e-5
+#: 14d: the scenario made non-finite.
+NAN_ROW = 1234
+
+
+def obs_to_host(obs) -> dict:
+    """A B=1 ``RobotObs`` on the card as the MuJoCo example's host dict."""
+    flat = torch.cat([obs.pos_base, obs.lin_vel_base, obs.quat_base, obs.ang_vel_base,
+                      obs.q, obs.qdot], dim=-1)[0].double().cpu().numpy()
+    return dict(zip(OBS_KEYS, np.split(flat, np.cumsum([3, 3, 4, 3, 12]))))
+
+
+class QpRecorder:
+    """Keeps the first ``n`` condensed QPs the controller builds and solves
+    (the inputs of ``refmpc.build_qp``, its outputs, the solver's config,
+    warm start and U), by wrapping the two module functions while open."""
+
+    def __init__(self, n: int):
+        self.n, self.qps = n, []
+
+    def __enter__(self):
+        self.build, self.solve = refmpc.build_qp, admm_fast.solve_batch
+
+        def build_qp(robot, mpc, x_t, yaw, feet, X, table):
+            out = self.build(robot, mpc, x_t, yaw, feet, X, table)
+            if len(self.qps) < self.n:
+                self.qps.append(dict(robot=robot, mpc=mpc, x_t=x_t.clone(), yaw=yaw.clone(),
+                                     feet=feet.clone(), table=table.clone(),
+                                     H=out[0].clone(), g=out[1].clone(), mv=out[2].clone()))
+            return out
+
+        def solve_batch(H, g, table, fz_max, mpc, cfg, warm=None, return_duals=False):
+            res = self.solve(H, g, table, fz_max, mpc, cfg, warm=warm, return_duals=return_duals)
+            if self.qps and "U" not in self.qps[-1]:
+                self.qps[-1].update(
+                    cfg=cfg, warm=None if warm is None else tuple(w.clone() for w in warm),
+                    U=(res[0] if return_duals else res).clone())
+            return res
+
+        refmpc.build_qp, admm_fast.solve_batch = build_qp, solve_batch
+        return self
+
+    def __exit__(self, *exc):
+        refmpc.build_qp, admm_fast.solve_batch = self.build, self.solve
+        return False
+
+
+def recorded_invariants(qps) -> dict:
+    """Phase 5's QP invariants of each recorded kernel solve against the
+    plain version on the same CUDA tensors, concatenated over the solves."""
+    rows = []
+    for qp in qps:
+        mpc, robot = qp["mpc"], qp["robot"]
+        Ad, Bd = srb.discretize(*srb.state_space(robot, qp["yaw"], qp["feet"]), mpc.dt_predict)
+        Sx, Su = condense.rollout_matrices(Ad, Bd, mpc.horizon)
+        p = CondensedProblem(mpc, robot, qp["H"], qp["g"], qp["mv"], qp["table"], qp["warm"],
+                             (Sx @ qp["x_t"][..., None])[..., 0], Su)
+        U_p = admm_fast.solve_batch(qp["H"], qp["g"], qp["table"], robot.fz_max, mpc, qp["cfg"],
+                                    backend="jnp", warm=qp["warm"])
+        rows.append(qp_invariants(p, qp["U"], U_p))
+    return {k: torch.cat([r[k] for r in rows]) for k in rows[0]}
+
+
+def phase_single_robot(dev, card):
+    """14a: ``make_torch_controller`` (the MuJoCo example's adapter) at B=1
+    on the card, driving ``fullorder.physics_step`` at B=1 through host
+    numpy each tick, as it drives MuJoCo."""
+    p = FO_PARTS["11b"]
+    step = make_torch_controller(p["horizon"], "aliengo", p["vx"], 0.0, p["gait"], device=dev)
+    robot = tree.tile(aliengo(device=dev), 1)
+    model = tree.tile(fullorder.rbd_model(aliengo(device=dev), mjcf.aliengo_spec()), 1)
+    cp = fullorder.ContactParams.default(dev)
+    state = fullorder.default_init_state(robot, cp.foot_radius)
+    dt = default_mpc_params(p["horizon"], device=dev).dt_control
+    vel_des = Command.trot_forward(p["vx"], device=dev).vel_base_des
+    rows, tick_ms, plant_ms = [], [], []
+    torch.cuda.synchronize()
+    reset_launches()
+    t_run = time.perf_counter()
+    with QpRecorder(SR_CHECKED_SOLVES) as rec:
+        for tick in range(SR_TICKS):
+            obs = obs_to_host(fullorder.observe(robot, state))
+            t0 = time.perf_counter()
+            torques, forces = step(obs, tick)
+            t1 = time.perf_counter()
+            tau = torch.from_numpy(torques).to(dev)[None]
+            state, _ = fullorder.physics_step(model, robot, cp, state, tau, dt)
+            R = lie.quat_to_rotmat(state.quat)
+            v_world = (R @ state.u[:, 3:6, None])[..., 0]
+            v_des = (R @ vel_des[:, None])[..., 0]
+            rows.append(torch.stack([
+                torch.linalg.vector_norm(v_world[:, :2] - v_des[:, :2], dim=-1)[0],
+                state.pos[0, 2], R[0, 2, 2],
+                fullorder._diverged(state, torch.zeros_like(state.pos[:, 2]))[0].float()]))
+            torch.cuda.synchronize()
+            tick_ms.append((t1 - t0) * 1e3)
+            plant_ms.append((time.perf_counter() - t1) * 1e3)
+    wall = time.perf_counter() - t_run
+    launches = kernel_launches()
+    n_solves = SR_TICKS // PERIOD
+    for name, count in launches.items():
+        want = n_solves if name in ("invert_spd", "iterate") else 0
+        check(count == want, f"phase 14a: kernel {name} launched {count} times, expected {want}")
+    m = torch.stack(rows).cpu()
+    metrics = {"vel_err": m[:, :1], "height": m[:, 1:2], "upright": m[:, 2:3]}
+    ok = bool(fullorder_in_band(metrics, state.pos[:, 0].cpu(), p["band"])[0])
+    diverged = bool(m[:, 3].any())
+    # Tick 0 (the first solve) carries one-time set-up; it is printed apart.
+    solve = np.array([t for i, t in enumerate(tick_ms) if i and i % PERIOD == 0])
+    other = np.array([t for i, t in enumerate(tick_ms) if i % PERIOD])
+    q = lambda a, pct: float(np.percentile(a, pct))
+    tail = lambda key: float(metrics[key][-FO_TAIL:].mean())
+    print(f"phase 14a: make_torch_controller Aliengo h={p['horizon']} {p['gait']} {p['vx']} m/s "
+          f"admm_fast B=1 on fullorder.physics_step B=1, torques through host numpy, "
+          f"{SR_TICKS} ticks in {wall:.1f} s: in phase 11b's band {ok} (over the last "
+          f"{FO_TAIL} ticks height {tail('height'):.3f} m, vel_err {tail('vel_err'):.3f} m/s, "
+          f"least upright {float(metrics['upright'][-FO_TAIL:].min()):.3f}; final x "
+          f"{float(state.pos[0, 0]):.3f} m), diverged {diverged}; kernel launches invert_spd "
+          f"{launches['invert_spd']}, iterate {launches['iterate']} ({n_solves} solves)",
+          flush=True)
+    print(f"phase 14a: controller tick, synchronised, host in and out: solve ticks p50 "
+          f"{q(solve, 50):.3f} / p99 {q(solve, 99):.3f} ms (limit {SR_SOLVE_LIMIT_MS:g} ms a "
+          f"solve; the first, set-up included, {tick_ms[0]:.1f} ms), other ticks p50 "
+          f"{q(other, 50):.3f} / p99 {q(other, 99):.3f} ms (limit {SR_TICK_LIMIT_MS:g} ms a "
+          f"tick); the plant (physics_step B=1 and the metric rows) p50 "
+          f"{q(np.array(plant_ms), 50):.3f} ms; not gated [{card}]", flush=True)
+    check(ok and not diverged, "phase 14a: the single robot left phase 11b's band")
+
+    check(len(rec.qps) == SR_CHECKED_SOLVES and all("U" in qp for qp in rec.qps),
+          "phase 14a: the recorder missed a solve")
+    inv = recorded_invariants(rec.qps)
+    pm = {k: p99_max(v) for k, v in inv.items()}
+    fz_max = float(robot.fz_max.max())
+    print(f"phase 14a: the first {SR_CHECKED_SOLVES} B=1 solves (invert_spd + iterate) against the "
+          f"plain version on the same CUDA tensors (p99 / max): cost excess "
+          f"{pm['excess'][0]:.3e} / {pm['excess'][1]:.3e} (bar {COST_BAR}), cone violation "
+          f"{pm['cone'][0]:.3e} / {pm['cone'][1]:.3e} N (bar {CONE_SHARE * fz_max:g}), predicted "
+          f"CoM {pm['pos'][0]:.2e} / {pm['pos'][1]:.2e} m, {pm['vel'][0]:.2e} / "
+          f"{pm['vel'][1]:.2e} m/s (bars {TRAJ_POS_BAR}, {TRAJ_VEL_BAR}; max {WORST_FACTOR:g}x); "
+          f"first-step fz rel {pm['fz'][1]:.3e}", flush=True)
+    check(invariants_ok(inv, fz_max), "phase 14a: a B=1 solve disagrees with the plain version")
+    return launches, dict(
+        wall_s=wall, in_band=ok, max_excess=pm["excess"][1],
+        solve_tick_ms={"p50": q(solve, 50), "p99": q(solve, 99)},
+        other_tick_ms={"p50": q(other, 50), "p99": q(other, 99)}, first_tick_ms=tick_ms[0],
+        plant_ms_p50=q(np.array(plant_ms), 50))
+
+
+def phase_batch_viz(dev, card):
+    """14b: ``examples/batch_viz.record_batch`` at BV_B scenarios: one
+    capture, BV_FRAMES frames, the per-gait share in band, ticks/s."""
+    torch.cuda.synchronize()
+    reset_launches()
+    graph_loop.CAPTURES = 0
+    t0 = time.perf_counter()
+    frames, m = record_batch(BV_B, BV_SECONDS, BV_FRAME_TICKS, BV_VX, device=dev,
+                             return_metrics=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, captures = kernel_launches(), graph_loop.CAPTURES
+    n_solves = BV_TICKS // PERIOD
+    for name, count in launches.items():
+        want = n_solves if name in ("invert_spd", "iterate") else 0
+        check(count == want, f"phase 14b: kernel {name} launched {count} times, expected {want}")
+    check(captures == 1, f"phase 14b: {captures} graph captures, expected one")
+    check(len(frames) == BV_FRAMES and frames[-1][2].shape == (BV_B, 12),
+          f"phase 14b: {len(frames)} frames, expected {BV_FRAMES}")
+    ok = batch_viz_in_band(m)
+    shares = per_gait_share(ok)
+    bars = {g: min(BAND_SHARE, BV_REFERENCE_SHARE[g] - 0.01) for g in BV_GAITS}
+    tps = BV_B * BV_TICKS / wall
+    per_gait = ", ".join(f"{g} {shares[g]:.4f} (bar {bars[g]:.4f})" for g in BV_GAITS)
+    print(f"phase 14b: record_batch Aliengo h=10 {'/'.join(BV_GAITS)} (i % 3), 0.6-1.0 x "
+          f"{BV_VX} m/s, B={BV_B}, {BV_FRAMES} frames of {BV_FRAME_TICKS} ticks ({BV_TICKS} "
+          f"ticks) in {wall:.1f} s (capture and host copies included): {tps:.0f} ticks/s; "
+          f"{captures} graph capture; kernel launches invert_spd {launches['invert_spd']}, "
+          f"iterate {launches['iterate']}; in band (no divergence, mean height over the last "
+          f"{FO_TAIL} ticks in {BV_HEIGHT_BAND}): {per_gait}; diverged "
+          f"{int(m['diverged'].any(dim=0).sum())} [{card}]", flush=True)
+    check(all(shares[g] >= bars[g] for g in BV_GAITS), "phase 14b: a gait below its bar")
+    return launches, dict(wall_s=wall, ticks_per_s=tps, captures=captures, frames=len(frames),
+                          share=shares, bar=bars)
+
+
+def leg_screws(robot, leg: int):
+    """(home (4,4), screws (3,6)) of one leg's hip, thigh and knee joints in
+    the base frame, from the robot's geometry (tests/test_lie.py:165), on
+    the robot's device."""
+    f64 = dict(dtype=torch.float64, device=robot.mass.device)
+    hip = robot.hip_offset[leg].double()
+    l1, l2, l3 = robot.hip_len[leg].double(), robot.l_thigh.double(), robot.l_calf.double()
+    ex = torch.tensor([1.0, 0.0, 0.0], **f64)
+    ey, ez = ex.roll(1), ex.roll(2)
+    p_thigh = hip + l1 * ey
+    p_knee = p_thigh - l2 * ez
+    screws = torch.stack([lie.screw_axis(ex, hip), lie.screw_axis(ey, p_thigh),
+                          lie.screw_axis(ey, p_knee)])
+    home = torch.eye(4, **f64)
+    home[:3, 3] = p_knee - l3 * ez
+    return home.float(), screws.float()
+
+
+def se3_inputs(n: int, seed: int) -> dict:
+    """Seeded float32 CPU inputs of each SE(3)/PoE function, n of each; the
+    first 64 screws are pure translations (exp_se3's small-angle branch)."""
+    rng = np.random.default_rng(seed)
+    T = lambda a: torch.tensor(np.asarray(a), dtype=torch.float32)
+    axis = rng.normal(size=(n, 3))
+    axis /= np.linalg.norm(axis, axis=-1, keepdims=True)
+    quat = rng.normal(size=(n, 4))
+    R = lie.quat_to_rotmat(T(quat / np.linalg.norm(quat, axis=-1, keepdims=True)))
+    p = T(rng.normal(size=(n, 3)))
+    Tr = lie.rp_to_se3(R, p)
+    S = rng.normal(size=(n, 6))
+    S[:64, :3] = 0.0
+    return {"exp_so3": (T(axis), T(rng.uniform(-3, 3, n))), "rp_to_se3": (R, p),
+            "inv_se3": (Tr,), "adjoint_rp": (R, p), "adjoint_se3": (Tr,),
+            "screw_axis": (T(axis), p), "twist_to_se3": (T(rng.normal(size=(n, 6))),),
+            "exp_se3": (T(S), T(rng.uniform(-1.5, 1.5, n))),
+            "fk_open_chain": (Tr, T(0.7 * rng.normal(size=(n, 3, 6))),
+                              T(rng.uniform(-1.5, 1.5, (n, 3))))}
+
+
+def phase_se3_toeplitz(dev, card):
+    """14c (no kernel): the SE(3)/PoE functions on the card against the CPU,
+    the PoE leg FK against ``kin``, and ``qp_cost_toeplitz`` against the
+    Gram condensing at B=4096, h=16 with both times."""
+    n = B_MAIN
+    errs = {}
+    for name, args in se3_inputs(n, 14).items():
+        fn = getattr(lie, name)
+        errs[name] = float((fn(*(a.to(dev) for a in args)).cpu() - fn(*args)).abs().max())
+    robot = aliengo(device=dev)
+    q = torch.tensor(np.random.default_rng(15).uniform(-1.0, 1.0, (n, 4, 3)),
+                     dtype=torch.float32, device=dev)
+    p_ref, _ = kin.leg_forward_kinematics(robot, q)
+    fk_err = 0.0
+    for leg in range(4):
+        home, screws = leg_screws(robot, leg)
+        T = lie.fk_open_chain(home.expand(n, 4, 4), screws.expand(n, 3, 6), q[:, leg])
+        fk_err = max(fk_err, float((T[:, :3, 3] - p_ref[:, leg]).abs().max()))
+    worst = max(errs, key=errs.get)
+    print(f"phase 14c: the nine SE(3)/PoE functions at {n} seeded inputs, card against CPU: "
+          f"max |d| {errs[worst]:.2e} ({worst}; bar {SE3_BAR:g}); fk_open_chain against "
+          f"kin.leg_forward_kinematics on the card, 4 legs x {n}: max |dp| {fk_err:.2e} m "
+          f"(bar {SE3_BAR:g})", flush=True)
+    check(max(errs.values()) < SE3_BAR and fk_err < SE3_BAR, "phase 14c: SE(3) outside the bar")
+
+    mpc, robot_b, Ad, Bd, x_t, X_ref, table, _ = random_problem(B_MAIN, HORIZON, 16, dev)
+    gram = lambda: condense.condense(Ad, Bd, x_t, X_ref, mpc)
+    toeplitz = lambda: condense.qp_cost_toeplitz(Ad, Bd, x_t, X_ref, mpc)
+    (H1, g1), (H2, g2) = gram(), toeplitz()
+    dH = float((H2.double() - H1.double()).abs().max() / H1.double().abs().max())
+    dg = float((g2.double() - g1.double()).abs().max() / (g1.double().abs().max() + 1.0))
+    sym = bool(torch.equal(H2, H2.transpose(-1, -2)))
+    ms_gram, ms_toep = cuda_ms(gram), cuda_ms(toeplitz)
+    Sx, Su = condense.rollout_matrices(Ad, Bd, HORIZON)
+    ms_qp_cost = cuda_ms(lambda: condense.qp_cost(Sx, Su, x_t, X_ref.reshape(B_MAIN, -1), mpc))
+    cfg = admm_fast.AdmmFastConfig.inloop()
+    solve = lambda Hg: admm_fast.solve_batch(Hg[0], Hg[1], table, robot_b.fz_max, mpc, cfg)
+    ms_gram_solve, ms_toep_solve = cuda_ms(lambda: solve(gram())), cuda_ms(lambda: solve(toeplitz()))
+    print(f"phase 14c: qp_cost_toeplitz against the Gram condensing at B={B_MAIN}, h={HORIZON}: "
+          f"max|dH|/max|H| {dH:.2e}, max|dg|/(max|g|+1) {dg:.2e} (bars 1e-6, "
+          f"tests/test_condense.py:103), H exactly symmetric {sym}; from (Ad, Bd): Toeplitz "
+          f"{ms_toep:.3f} ms, rollout_matrices + qp_cost {ms_gram:.3f} ms (qp_cost alone "
+          f"{ms_qp_cost:.3f}); composed with the split solve (inloop, {cfg.iterations} sweeps): "
+          f"{ms_toep_solve:.3f} against {ms_gram_solve:.3f} ms [{card}]", flush=True)
+    check(dH < 1e-6 and dg < 1e-6 and sym, "phase 14c: the Toeplitz condensing outside the bars")
+    return dict(se3_max_err=errs[worst], fk_max_err=fk_err, toeplitz_dH=dH, toeplitz_dg=dg,
+                toeplitz_ms=ms_toep, gram_ms=ms_gram, qp_cost_ms=ms_qp_cost,
+                toeplitz_solve_ms=ms_toep_solve, gram_solve_ms=ms_gram_solve)
+
+
+def nan_isolation(dev, backend: str, B: int = B_MAIN) -> dict:
+    """One solve of a B-scenario batch through ``backend`` (an ``admm_fast``
+    backend or ``"riccati"``), with and without scenario NAN_ROW's input
+    made NaN (g for the condensed path, x_t for the Riccati path, as a NaN
+    observation makes it): how many elements of the other scenarios'
+    solutions differ, and whether the poisoned one is non-finite."""
+    row = NAN_ROW % B
+    if backend == "riccati":
+        p = riccati_problem(B, "inloop", dev, seed=17)
+        Ad, Bd, x_t, X_ref = p.args[:4]
+        bad = x_t.clone()
+        bad[row] = float("nan")
+        run = lambda x: riccati.solve_batch(Ad, Bd, x, X_ref, p.table, p.robot.fz_max, p.mpc,
+                                            p.cfg, backend="cuda")
+        clean, poisoned = run(x_t), run(bad)
+    else:
+        p = condensed_problem(B, 17, dev)
+        bad = p.g.clone()
+        bad[row] = float("nan")
+        cfg = admm_fast.AdmmFastConfig.inloop()
+        run = lambda g: admm_fast.solve_batch(p.H, g, p.table, p.robot.fz_max, p.mpc, cfg,
+                                              backend=backend, warm=p.warm)
+        clean, poisoned = run(p.g), run(bad)
+    torch.cuda.synchronize()
+    keep = torch.arange(B, device=dev) != row
+    return {"others_differ": int((clean[keep] != poisoned[keep]).sum()),
+            "others": int(clean[keep].numel()),
+            "others_finite": bool(torch.isfinite(poisoned[keep]).all()),
+            "poisoned_finite": bool(torch.isfinite(poisoned[row]).all())}
+
+
+NAN_BACKENDS = ("pallas_split", "pallas_fused", "pallas_full", "riccati")
+
+
+def phase_nan_isolation(dev, card):
+    """14d: a NaN scenario leaves every other scenario of a B=4096 batch
+    bitwise unchanged, through each kernel backend."""
+    res = {}
+    for backend in NAN_BACKENDS:
+        r = res[backend] = nan_isolation(dev, backend)
+        print(f"phase 14d: {backend} at B={B_MAIN}, h={HORIZON}, scenario {NAN_ROW} NaN: "
+              f"{r['others_differ']} of the other scenarios' {r['others']} elements differ "
+              f"(bar: bitwise equal), the others finite {r['others_finite']}, the poisoned "
+              f"scenario finite {r['poisoned_finite']}", flush=True)
+        check(r["others_differ"] == 0 and r["others_finite"],
+              f"phase 14d: the NaN scenario reached another scenario through {backend}")
+    return res
+
+
 def worker(argv) -> int:
     """``chip_smoke.py --worker solve|sweep|nccl ...``: one process of phase 13."""
     kind, rest = argv[0], argv[1:]
@@ -1829,6 +2221,13 @@ def main() -> int:
     parity["wall_s"] = time.perf_counter() - t0
     print(f"phase 12: the parity solvers took {parity['wall_s']:.1f} s [{card}]", flush=True)
     sharded = phase_sharded(dev, card)
+    t0 = time.perf_counter()
+    sr_launches, single = phase_single_robot(dev, card)
+    bv_launches, grid = phase_batch_viz(dev, card)
+    surfaces = {"single_robot": single, "batch_viz": grid, "se3": phase_se3_toeplitz(dev, card),
+                "nan": phase_nan_isolation(dev, card), "wall_s": time.perf_counter() - t0}
+    print(f"phase 14: the single robot, the grid, SE(3) and NaN isolation took "
+          f"{surfaces['wall_s']:.1f} s [{card}]", flush=True)
 
     kernels = [{
         "name": "riccati_admm", "route": "cuda",
@@ -1868,7 +2267,13 @@ def main() -> int:
                 "launches_fullorder_in": FO_LAUNCHES_IN["admm_fast"],
                 "launches_sharded": [w[name] for w in sharded["launches"]["13b"]],
                 "launches_sharded_in": f"13b: each rank's sweep entry point, "
-                                       f"{int(SH_SECONDS * 1e3)} ticks, B=2048 of 4096"}
+                                       f"{int(SH_SECONDS * 1e3)} ticks, B=2048 of 4096",
+                "launches_single_robot": sr_launches[name],
+                "launches_single_robot_in": f"14a: make_torch_controller B=1, h=10, "
+                                            f"{SR_TICKS} ticks, {SR_TICKS // PERIOD} solves",
+                "launches_batch_viz": bv_launches[name],
+                "launches_batch_viz_in": f"14b: record_batch B={BV_B}, h=10, {BV_TICKS} "
+                                         f"ticks, {BV_TICKS // PERIOD} solves"}
                if on_loop else {}),
             "max_abs_err": cond_err[name], "err": errs[name], **cond_times[name],
         })
@@ -1876,6 +2281,7 @@ def main() -> int:
     print(json.dumps({"fullorder": fo_times}))
     print(json.dumps({"parity": parity}))
     print(json.dumps({"sharded": sharded}))
+    print(json.dumps({"surfaces": surfaces}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -29,9 +29,14 @@ def _copy_into(dst, src):
     tree_map(lambda d, s: d.copy_(s), dst, src)
 
 
+#: CUDA graphs captured by :func:`capture_graph` in this process.
+CAPTURES = 0
+
+
 def capture_graph(body, warmup=None) -> torch.cuda.CUDAGraph:
     """``body()`` captured in a CUDA graph, after two calls of ``warmup``
     (``body`` unless given) on a side stream.  A capture failure raises."""
+    global CAPTURES
     warmup = body if warmup is None else warmup
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -45,6 +50,7 @@ def capture_graph(body, warmup=None) -> torch.cuda.CUDAGraph:
     with torch.cuda.graph(graph):
         body()
     graph.instantiate()
+    CAPTURES += 1
     return graph
 
 

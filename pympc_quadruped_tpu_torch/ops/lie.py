@@ -3,8 +3,13 @@
 Conventions as in the JAX package: quaternions ``(w, x, y, z)``, intrinsic
 ZYX Euler ``R = Rz(yaw) Ry(pitch) Rx(roll)`` returned as ``[roll, pitch,
 yaw]``.  Every function takes any number of leading batch axes (the JAX
-functions are unbatched and ``vmap``-ed).  The SE(3)/product-of-exponentials
-part of the JAX module is not ported yet (ROADMAP Queue 1, item 13).
+functions are unbatched and ``vmap``-ed).
+
+The SE(3)/product-of-exponentials half (``exp_so3`` to ``fk_open_chain``)
+completes the reference's math library (ref utils/kinematics.py:188-306);
+no controller path calls it.  As in the JAX module these are total,
+branch-free closed forms: ``exp_se3`` takes the small-angle limit through a
+guarded select, so any screw is defined.
 """
 from __future__ import annotations
 
@@ -107,6 +112,97 @@ def rot_z(theta: torch.Tensor) -> torch.Tensor:
     c, s = torch.cos(theta), torch.sin(theta)
     one, zero = torch.ones_like(c), torch.zeros_like(c)
     return _mat3([[c, -s, zero], [s, c, zero], [zero, zero, one]])
+
+
+def exp_so3(omega: torch.Tensor, theta) -> torch.Tensor:
+    """Rodrigues' formula for a unit axis: omega (...,3), theta (...) ->
+    (...,3,3) (ref kinematics.py:179-186)."""
+    K = skew(omega)
+    th = torch.as_tensor(theta, dtype=K.dtype, device=K.device)[..., None, None]
+    eye = torch.eye(3, dtype=K.dtype, device=K.device)
+    return eye + torch.sin(th) * K + (1.0 - torch.cos(th)) * (K @ K)
+
+
+def rp_to_se3(R: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """(...,3,3) rotation + (...,3) translation -> (...,4,4) homogeneous
+    transform (ref kinematics.py:226-235)."""
+    lead = torch.broadcast_shapes(R.shape[:-2], p.shape[:-1])
+    top = torch.cat([R.expand(lead + (3, 3)), p.expand(lead + (3,))[..., None]], dim=-1)
+    bottom = torch.zeros(lead + (1, 4), dtype=R.dtype, device=R.device)
+    bottom[..., 0, 3] = 1.0
+    return torch.cat([top, bottom], dim=-2)
+
+
+def inv_se3(T: torch.Tensor) -> torch.Tensor:
+    """Closed-form inverse of a homogeneous transform: (R, p) -> (R^T, -R^T p)
+    (ref kinematics.py:188-198)."""
+    Rt = T[..., :3, :3].transpose(-1, -2)
+    return rp_to_se3(Rt, (-Rt @ T[..., :3, 3:])[..., 0])
+
+
+def adjoint_rp(R: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """(...,6,6) SE(3) adjoint [[R, 0], [[p]x R, R]] in the reference's
+    omega-first twist convention (ref kinematics.py:213-224)."""
+    top = torch.cat([R, torch.zeros_like(R)], dim=-1)
+    bottom = torch.cat([skew(p) @ R, R], dim=-1)
+    return torch.cat([top, bottom], dim=-2)
+
+
+def adjoint_se3(T: torch.Tensor) -> torch.Tensor:
+    """(...,6,6) adjoint of a homogeneous transform (ref kinematics.py:200-211)."""
+    return adjoint_rp(T[..., :3, :3], T[..., :3, 3])
+
+
+def screw_axis(omega: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """(...,6) screw axis of a revolute joint: unit axis ``omega`` through
+    the point ``q`` -> ``[omega, -omega x q]`` (ref kinematics.py:264-273)."""
+    omega, q = torch.broadcast_tensors(omega, q)
+    return torch.cat([omega, -torch.linalg.cross(omega, q, dim=-1)], dim=-1)
+
+
+def twist_to_se3(twist: torch.Tensor) -> torch.Tensor:
+    """(...,6) twist [omega, v] -> (...,4,4) se(3) matrix [[[omega]x, v], [0, 0]]
+    (ref kinematics.py:276-292)."""
+    top = torch.cat([skew(twist[..., :3]), twist[..., 3:, None]], dim=-1)
+    return torch.cat([top, torch.zeros_like(top[..., :1, :])], dim=-2)
+
+
+def exp_se3(S: torch.Tensor, theta) -> torch.Tensor:
+    """Matrix exponential of the screw ``S*theta``: S (...,6), theta (...)
+    -> (...,4,4).  With w = ||omega||,
+
+        R = I + sin(w t)/w [o]x + (1-cos(w t))/w^2 [o]x^2
+        p = (I t + (1-cos(w t))/w^2 [o]x + (w t - sin(w t))/w^3 [o]x^2) v,
+
+    and for w < 1e-6 the limit R = I, p = t v by a guarded select, so pure
+    translations and non-unit axes are both defined."""
+    omega, v = S[..., :3], S[..., 3:]
+    theta = torch.as_tensor(theta, dtype=S.dtype, device=S.device)
+    w2 = (omega * omega).sum(dim=-1)
+    w = torch.sqrt(w2)
+    small = w < 1e-6
+    ws = torch.where(small, torch.ones_like(w), w)           # guarded divisor
+    a = w * theta
+    K = skew(omega)
+    K2 = K @ K
+    sin_c = torch.where(small, theta, torch.sin(a) / ws)[..., None, None]
+    cos_c = torch.where(small, 0.5 * theta * theta, (1.0 - torch.cos(a)) / w2)[..., None, None]
+    V_c = torch.where(small, theta ** 3 / 6.0, (a - torch.sin(a)) / (w2 * ws))[..., None, None]
+    eye = torch.eye(3, dtype=S.dtype, device=S.device)
+    R = eye + sin_c * K + cos_c * K2
+    V = theta[..., None, None] * eye + cos_c * K + V_c * K2
+    return rp_to_se3(R, (V @ v[..., None])[..., 0])
+
+
+def fk_open_chain(home: torch.Tensor, screws: torch.Tensor, thetas: torch.Tensor) -> torch.Tensor:
+    """Product-of-exponentials forward kinematics (ref kinematics.py:294-306):
+    ``T = exp(S_0 q_0) ... exp(S_{J-1} q_{J-1}) @ home`` with ``home``
+    (...,4,4), ``screws`` (...,J,6) and ``thetas`` (...,J); the J screws
+    are folded in order from the identity."""
+    T = torch.eye(4, dtype=home.dtype, device=home.device)
+    for j in range(screws.shape[-2]):
+        T = T @ exp_se3(screws[..., j, :], thetas[..., j])
+    return T @ home
 
 
 def quat_integrate(q: torch.Tensor, omega_body: torch.Tensor, dt) -> torch.Tensor:

@@ -91,6 +91,12 @@ def _pyramid_rows(mu: torch.Tensor) -> torch.Tensor:
     ])
 
 
+def cone_block(device="cuda") -> torch.Tensor:
+    """The (5,3) per-leg friction-pyramid rows in l <= C f <= u form at the
+    reference's mu = 0.7 (ref ``linear_mpc/mpc.py:239-245``), on ``device``."""
+    return _pyramid_rows(torch.tensor(0.7, dtype=torch.float32, device=device))
+
+
 def _gauss_jordan_inv(M: torch.Tensor) -> torch.Tensor:
     """Pivot-free Gauss-Jordan inverse of small SPD blocks, batched over
     leading axes.

@@ -21,6 +21,7 @@ from pympc_quadruped_tpu.models.robots import aliengo as jaliengo
 from pympc_quadruped_tpu.ops import condense as jcondense
 from pympc_quadruped_tpu.ops import srb as jsrb
 from pympc_quadruped_tpu.ops.qp import cones as jcones
+from pympc_quadruped_tpu.ops.qp import riccati as jriccati
 from pympc_quadruped_tpu.utils import observability as jobs
 
 from pympc_quadruped_tpu_torch import convert, tree
@@ -30,7 +31,7 @@ from pympc_quadruped_tpu_torch.control.swing import SwingCarry
 from pympc_quadruped_tpu_torch.models import Command, Gaits, aliengo, default_mpc_params
 from pympc_quadruped_tpu_torch.models.robots import a1
 from pympc_quadruped_tpu_torch.ops import condense
-from pympc_quadruped_tpu_torch.ops.qp import cones
+from pympc_quadruped_tpu_torch.ops.qp import cones, riccati
 from pympc_quadruped_tpu_torch.utils import observability
 
 torch.set_num_threads(1)
@@ -104,6 +105,36 @@ def test_rollout_and_condense_match_jax():
     assert torch.equal(Hp, Hp.transpose(-1, -2))
 
 
+@pytest.mark.parametrize("h", [10, H])
+def test_qp_cost_toeplitz_matches_jax_and_the_gram_form(h):
+    """The block-Toeplitz condensing against JAX's at the tolerances above,
+    and against the port's Gram form (``condense``) at
+    tests/test_condense.py:103's bars: max|dH| / max|H| and
+    max|dg| / (max|g| + 1) below 1e-6; H exactly symmetric."""
+    x_t, yaw, feet, X_ref, _ = qp_inputs(B, h, 5)
+    robot_j, mpc_j = jaliengo(), JMpcParams(horizon=h)
+    Ad_j, Bd_j = jax.vmap(lambda y, p: jsrb.discretize(
+        *jsrb.state_space(robot_j, y, p), mpc_j.dt_predict))(yaw, feet)
+    Hj, gj = jax.vmap(lambda a, b, x, r: jcondense.qp_cost_toeplitz(a, b, x, r.reshape(-1),
+                                                                     mpc_j))(
+        Ad_j, Bd_j, x_t, X_ref)
+    Ad, Bd = torch.tensor(np.asarray(Ad_j)), torch.tensor(np.asarray(Bd_j))
+    mpc = default_mpc_params(h, device="cpu")
+    x_t, X_ref = torch.tensor(x_t), torch.tensor(X_ref)
+    Ht, gt = condense.qp_cost_toeplitz(Ad, Bd, x_t, X_ref, mpc)
+    _close_to_scale(Ht, Hj, 1e-5, 1e-6)
+    _close_to_scale(gt, gj, 1e-5, 1e-5)
+    assert torch.equal(Ht, Ht.transpose(-1, -2))
+    Hg, gg = (t.double() for t in condense.condense(Ad, Bd, x_t, X_ref, mpc))
+    assert float((Ht.double() - Hg).abs().max() / Hg.abs().max()) < 1e-6
+    assert float((gt.double() - gg).abs().max() / (gg.abs().max() + 1.0)) < 1e-6
+
+
+def test_cone_block_matches_jax():
+    np.testing.assert_array_equal(riccati.cone_block(device="cpu").numpy(),
+                                  np.asarray(jriccati.cone_block()))
+
+
 def test_build_qp_matches_jax():
     arrays = qp_inputs(B, H, 1)
     Hj, gj, mvj = jax_build_qp(arrays, H)
@@ -154,7 +185,7 @@ CONSTRUCTORS = {  # name -> (constructor, positional arguments)
     "aliengo": (aliengo, ()), "a1": (a1, ()), "Gaits.trotting16": (Gaits.trotting16, ()),
     "Gaits.by_name": (Gaits.by_name, ("pacing10",)),
     "Command.trot_forward": (Command.trot_forward, ()),
-    "default_mpc_params": (default_mpc_params, ()), "MpcCarry.init": (MpcCarry.init, ()),
+    "default_mpc_params": (default_mpc_params, ()), "cone_block": (riccati.cone_block, ()), "MpcCarry.init": (MpcCarry.init, ()),
     "SwingCarry.init": (SwingCarry.init, ()), "init_carry": (controller.init_carry, ()),
     "convert.robot_params": (convert.robot_params,
                              (convert.as_arrays(aliengo(device="cpu")),)),

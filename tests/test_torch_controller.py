@@ -175,3 +175,58 @@ def test_unknown_solver_raises():
         controller.check_solver(solver)
     with pytest.raises(ValueError, match="unknown solver"):
         controller.check_solver("osqp")
+
+
+def _nan_setup():
+    """tests/test_fault_and_fast_loop.py's setup: B=2, h=10, TROTTING10 at
+    0.6 m/s from the SRB nominal stance, in both frameworks."""
+    Bn, h = 2, 10
+    tile = lambda t: jax.tree.map(lambda x: jnp.broadcast_to(x, (Bn,) + jnp.shape(x)), t)
+    mpc_j = JMpcParams(horizon=h)
+    robot_j, gait_j = tile(jaliengo()), tile(JGaits.trotting10())
+    cmd_j = tile(JCommand.trot_forward(0.6))
+    obs_j = jax.vmap(jenv.observe)(robot_j, jax.vmap(jenv.default_init_state)(robot_j))
+    carry_j = jax.vmap(lambda _: jctrl.init_carry(h))(jnp.arange(Bn))
+    A = convert.as_arrays
+    port = (convert.robot_params(A(robot_j), device="cpu"),
+            convert.mpc_params(A(mpc_j), device="cpu"),
+            convert.gait_params(A(gait_j), device="cpu"), convert.command(A(cmd_j), device="cpu"),
+            convert.controller_carry(A(carry_j), device="cpu"),
+            convert.robot_obs(A(obs_j), device="cpu"))
+    return (robot_j, mpc_j, gait_j, cmd_j, carry_j, obs_j), port
+
+
+@pytest.mark.parametrize("solver", ["admm_fast", "riccati", "admm", "ipm", "ipm_parity"])
+def test_nan_poisoned_solve_matches_jax(solver):
+    """Scenario 0's ``lin_vel_base`` is NaN on the second solve tick
+    (tests/test_fault_and_fast_loop.py:104).  ``admm_fast``, ``riccati``
+    and ``admm`` return a non-finite solve, so the guard holds scenario 0's
+    previous forces bit for bit; ``ipm`` and ``ipm_parity`` return finite
+    zero forces for it, in JAX too, so the hold does not fire (ROADMAP
+    watch list).  Scenario 1 solves normally in every case."""
+    (robot_j, mpc_j, gait_j, cmd_j, carry_j, obs_j), (robot, mpc, gait, cmd, carry, obs) = \
+        _nan_setup()
+    jstep = jax.jit(lambda c, o, t: jctrl.step_batch(robot_j, mpc_j, gait_j, cmd_j, c, o, t,
+                                                     solver=solver))
+    carry_j, out0_j = jstep(carry_j, obs_j, jnp.int32(0))
+    bad_j = obs_j.replace(lin_vel_base=obs_j.lin_vel_base.at[0, 0].set(jnp.nan))
+    _, out1_j = jstep(carry_j, bad_j, jnp.int32(20))
+    f0_j, f1_j = np.asarray(out0_j.contact_forces), np.asarray(out1_j.contact_forces)
+
+    carry, out0 = controller.step_batch(robot, mpc, gait, cmd, carry, obs, 0, solver=solver)
+    bad = dataclasses.replace(obs, lin_vel_base=obs.lin_vel_base.clone())
+    bad.lin_vel_base[0, 0] = float("nan")
+    _, out1 = controller.step_batch(robot, mpc, gait, cmd, carry, bad, 20, solver=solver)
+    f0, f1 = out0.contact_forces.numpy(), out1.contact_forces.numpy()
+
+    assert np.isfinite(f0).all() and np.isfinite(f1).all()
+    if solver in ("ipm", "ipm_parity"):
+        np.testing.assert_array_equal(f1_j[0], np.zeros(12, np.float32))
+        np.testing.assert_array_equal(f1[0], np.zeros(12, np.float32))
+    else:
+        np.testing.assert_array_equal(f1_j[0], f0_j[0])
+        np.testing.assert_array_equal(f1[0], f0[0])
+    assert not np.array_equal(f1[1], f0[1])
+    # Scenario 1 is untouched by scenario 0's fault: the first-step forces
+    # agree with JAX's at the solvers' lockstep bars.
+    np.testing.assert_allclose(f1[1], f1_j[1], atol=1.5)

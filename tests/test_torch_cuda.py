@@ -12,11 +12,11 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (B_MAIN, CONE_SHARE, INV_RATIO_BAR, PARITY_COST_BAR, PARITY_GRF_BAR,
-                        closed_loop_setup, condensed_problem, cone_violation, engine_inputs,
-                        f64_cost,
-                        fullorder_graph_and_eager, fullorder_setup, invariants_ok,
-                        inverse_residual, parity_routes, qp_invariants, random_problem)
+from chip_smoke import (B_MAIN, CONE_SHARE, INV_RATIO_BAR, NAN_BACKENDS, PARITY_COST_BAR,
+                        PARITY_GRF_BAR, closed_loop_setup, condensed_problem, cone_violation,
+                        engine_inputs, f64_cost, fullorder_graph_and_eager, fullorder_setup,
+                        invariants_ok, inverse_residual, nan_isolation, parity_routes,
+                        qp_invariants, random_problem)
 from pympc_quadruped_tpu_torch import tree
 from pympc_quadruped_tpu_torch.control import controller as ctrl
 from pympc_quadruped_tpu_torch.control import refmpc
@@ -340,3 +340,13 @@ def test_cuda_parity_independent_of_batch(cuda_device):
     assert rel(U_all[idx], U_one) < 1e-3
     assert rel(U_sub, U_one) < 1e-3
     assert rel(U_one, U_cpu) < 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", NAN_BACKENDS)
+def test_cuda_nan_scenario_leaves_the_others_bitwise(cuda_device, backend):
+    """chip_smoke.py phase 14d: one NaN scenario of a B=4096 batch, through
+    each kernel backend, leaves every other scenario's solution bit for
+    bit the same as without it."""
+    r = nan_isolation(cuda_device, backend)
+    assert r["others_differ"] == 0 and r["others_finite"], r

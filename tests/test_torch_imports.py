@@ -6,7 +6,13 @@ A fresh interpreter with ``sys.modules["jax"]`` and
 ``sys.modules["pympc_quadruped_tpu"]`` set to ``None`` (any import of them
 then raises ``ImportError``) imports every module of the port and
 ``chip_smoke``; among them the parity solvers' ``ops.qp.admm`` and
-``ops.qp.ipm`` and ``utils.profiling``.
+``ops.qp.ipm``, ``utils.profiling``, ``utils.viz`` and the examples.
+
+The machine with the card has no MuJoCo, matplotlib, imageio or PIL
+either: the modules that use them import them inside the functions that
+do.  A second interpreter with those four made unimportable imports every
+module and ``chip_smoke``, and runs the single-robot controller adapter
+and the batch recorder on the CPU.
 """
 import os
 import subprocess
@@ -26,7 +32,8 @@ for name in names + ["chip_smoke"]:
 leaked = sorted(n for n, m in sys.modules.items() if m is not None and (
     n.split(".")[0] in ("jax", "jaxlib", "pympc_quadruped_tpu")))
 assert not leaked, leaked
-for name in ("ops.qp.admm", "ops.qp.ipm", "utils.profiling"):
+for name in ("ops.qp.admm", "ops.qp.ipm", "utils.profiling", "utils.viz",
+             "examples.mujoco_closed_loop", "examples.visualize", "examples.batch_viz"):
     assert port.__name__ + "." + name in names, name
 print(len(names))
 """
@@ -41,3 +48,36 @@ def test_port_and_chip_smoke_import_without_jax():
     port_dir = os.path.join(REPO, "pympc_quadruped_tpu_torch")
     expected = sum(f.endswith(".py") for _, _, files in os.walk(port_dir) for f in files) - 1
     assert int(res.stdout.split()[-1]) == expected
+
+
+NO_VIEWERS = """
+import sys
+for blocked in ("mujoco", "matplotlib", "imageio", "PIL"):
+    sys.modules[blocked] = None
+import importlib, pkgutil
+import numpy as np
+import torch
+import pympc_quadruped_tpu_torch as port
+for m in pkgutil.walk_packages(port.__path__, port.__name__ + "."):
+    importlib.import_module(m.name)
+import chip_smoke
+from pympc_quadruped_tpu_torch.examples.batch_viz import record_batch
+from pympc_quadruped_tpu_torch.examples.mujoco_closed_loop import make_torch_controller
+torch.set_num_threads(1)
+step = make_torch_controller(10, device="cpu")
+obs = {"pos": [0.0, 0.0, 0.38], "vel": [0.0] * 3, "quat": [1.0, 0.0, 0.0, 0.0],
+       "omega": [0.0] * 3, "q": [0.0, 0.8, -1.6] * 4, "qdot": [0.0] * 12}
+torques, forces = step(obs, 0)
+assert torques.shape == forces.shape == (12,) and np.isfinite(torques).all()
+frames = record_batch(3, 0.08, 40, device="cpu")
+assert len(frames) == 2 and frames[-1][2].shape == (3, 12)
+print("ok")
+"""
+
+
+def test_adapter_and_recorder_run_without_mujoco_or_plotting():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-c", NO_VIEWERS], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-4000:]
+    assert res.stdout.split()[-1] == "ok"
