@@ -5,8 +5,9 @@ shared library of its own with a plain C interface, all sources at once in
 parallel, and :func:`load` opens them with ``ctypes``.  The libraries go to
 ``_build/<hash of the source and headers>/`` inside the package
 (git-ignored), so a checkout builds everything from its own sources:
-nothing is downloaded or prebuilt.  :func:`build_host` compiles the host
-twin of a kernel with the system C++ compiler, for the CPU tests.
+nothing is downloaded or prebuilt.  :func:`build_host` compiles a host
+source with the system C++ compiler: a kernel's host twin for the CPU
+tests, and the C++ QP oracle (``oracle/cpp.py``).
 """
 from __future__ import annotations
 
@@ -28,10 +29,12 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 HOST_FLAGS = ["-std=c++17", "-O2", "-shared", "-fPIC"]
 
-_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
-# Every C launcher of csrc/, with its argument types; each library binds the
-# ones it exports.  Pointers and the stream are c_void_p, ints c_int.
+_P, _I, _F, _D, _L = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double,
+                      ctypes.c_longlong)
+# Every C entry point of csrc/, with its argument types; each library binds
+# the ones it exports.  Pointers and the stream are c_void_p, ints c_int.
 SIGNATURES = {
+    "qp_oracle_solve": ([_I] + [_P] * 3 + [_D] * 2 + [_I, _D] + [_P] * 2, _I),
     "riccati_admm_launch": ([_P] * 17 + [_I] * 3 + [_F] * 2 + [_P], _I),
     "riccati_admm_max_horizon": ([], _I),
     "riccati_admm_occupancy": ([_I, _P], _I),

@@ -7,10 +7,17 @@ generated from the robot's parameters (:mod:`..env.mjcf`), the nominal
 stance reset (q = (0, 0.8, -1.6) x 4 at the desired height, ref :32-39), a
 ground-truth state feed (ref :59-99) or IMU and encoders through the
 Kalman filter, and TROTTING10 at v_x = 1.2 m/s (ref :176-180).  The
-controller is ``controller.step_batch`` at B=1 on the card
-(``--device cpu`` on a machine without one):
+controller (``--device cpu`` on a machine without a card) is either
+
+- ``--controller torch`` (the default): ``controller.step_batch`` at B=1
+  on the card, the port's compute path; or
+- ``--controller oracle``: the float64 golden controller
+  (:mod:`..oracle.npref`), which shares no code with that path (the JAX
+  example's default).
 
     python -m pympc_quadruped_tpu_torch.examples.mujoco_closed_loop --seconds 5
+    python -m pympc_quadruped_tpu_torch.examples.mujoco_closed_loop --controller oracle \\
+        --device cpu --seconds 5
     python -m pympc_quadruped_tpu_torch.examples.mujoco_closed_loop --device cpu \\
         --gait-plan trotting16:1200,jumping16:2480,trotting16 --horizon 16 --vx 0.4
 
@@ -176,6 +183,25 @@ def make_torch_controller(horizon, robot_name="aliengo", vx=1.2, yaw_rate=0.0,
     return step
 
 
+def make_oracle_controller(horizon, robot_name="aliengo", vx=1.2, yaw_rate=0.0,
+                           gait_name="trotting10", device="cuda"):
+    """The float64 golden controller (``oracle.npref.OracleController``) on
+    ``device``: returns ``step(obs, tick)`` -> (torques (12,), forces (12,))
+    as host float64 arrays."""
+    from pympc_quadruped_tpu_torch.oracle import npref
+
+    robot = npref.oracle_aliengo(device) if robot_name == "aliengo" else npref.oracle_a1(device)
+    ctrl = npref.OracleController(robot, npref.OracleConfig(horizon=horizon, device=device),
+                                  npref.OracleGait.by_name(gait_name, device))
+
+    def step(obs, tick):
+        out = ctrl.step(obs, [vx, 0.0, 0.0], yaw_rate, tick)
+        res = torch.cat([out["torques"], out["forces"]]).cpu().numpy()
+        return res[:12], res[12:]
+
+    return step
+
+
 def check_gait_plan(gait_plan, horizon):
     """The flight-aware reference trajectory is exact only when the horizon
     covers the gait period: a phased gait with more segments than the
@@ -208,8 +234,10 @@ def run(controller="torch", seconds=5.0, horizon=10, record=None, verbose=True,
     display).  ``warmup_ticks``: a fresh controller first stands (the
     STANDING gait at zero command) for that many ticks, the reference's
     unused ``initialize_robot`` (ref mujoco_aliengo.py:121-155)."""
-    if controller != "torch":
-        raise ValueError(f"controller {controller!r}: the port runs its own, 'torch'")
+    if controller not in ("torch", "oracle"):
+        raise ValueError(f"unknown controller {controller!r}: 'torch' or 'oracle'")
+    if gait_plan is not None and controller != "torch":
+        raise ValueError("--gait-plan needs --controller torch")
     mujoco = import_mujoco()
     from pympc_quadruped_tpu_torch.env import mjcf
 
@@ -228,8 +256,11 @@ def run(controller="torch", seconds=5.0, horizon=10, record=None, verbose=True,
 
     if gait_plan is not None:
         check_gait_plan(gait_plan, horizon)
-    step_fn = make_torch_controller(horizon, robot, vx, yaw_rate, gait, gait_plan=gait_plan,
-                                    device=device)
+    if controller == "oracle":
+        step_fn = make_oracle_controller(horizon, robot, vx, yaw_rate, gait, device=device)
+    else:
+        step_fn = make_torch_controller(horizon, robot, vx, yaw_rate, gait, gait_plan=gait_plan,
+                                        device=device)
     trunk = model.body("trunk").id
     estimator = None
     if sensors == "raw":
@@ -250,7 +281,8 @@ def run(controller="torch", seconds=5.0, horizon=10, record=None, verbose=True,
 
         viewer = mj_viewer.launch_passive(model, data)
     if warmup_ticks:
-        warm_fn = make_torch_controller(horizon, robot, 0.0, 0.0, "standing", device=device)
+        make = make_oracle_controller if controller == "oracle" else make_torch_controller
+        warm_fn = make(horizon, robot, 0.0, 0.0, "standing", device=device)
         for tick in range(int(warmup_ticks)):
             torques, _ = warm_fn(read_obs(model, data), tick)
             data.ctrl[:] = torques
@@ -353,7 +385,9 @@ def parse_gait_plan(text):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--controller", choices=["torch"], default="torch")
+    ap.add_argument("--controller", choices=["torch", "oracle"], default="torch",
+                    help="torch: the port's controller (the default); oracle: the float64 "
+                         "golden controller")
     ap.add_argument("--seconds", type=float, default=5.0)
     ap.add_argument("--horizon", type=int, default=10)
     ap.add_argument("--record", default=None)

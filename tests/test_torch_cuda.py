@@ -16,7 +16,7 @@ from chip_smoke import (B_MAIN, CONE_SHARE, INV_RATIO_BAR, NAN_BACKENDS, PARITY_
                         PARITY_GRF_BAR, closed_loop_setup, condensed_problem, cone_violation,
                         engine_inputs, f64_cost, fullorder_graph_and_eager, fullorder_setup,
                         invariants_ok, inverse_residual, nan_isolation, parity_routes,
-                        qp_invariants, random_problem)
+                        phase_oracle_certificate, qp_invariants, random_problem)
 from pympc_quadruped_tpu_torch import tree
 from pympc_quadruped_tpu_torch.control import controller as ctrl
 from pympc_quadruped_tpu_torch.control import refmpc
@@ -350,3 +350,15 @@ def test_cuda_nan_scenario_leaves_the_others_bitwise(cuda_device, backend):
     bit the same as without it."""
     r = nan_isolation(cuda_device, backend)
     assert r["others_differ"] == 0 and r["others_finite"], r
+
+
+@pytest.mark.cuda
+def test_cuda_oracle_certifies_the_main_path_qps(cuda_device):
+    """chip_smoke.py phase 15a at B=64: the float64 oracle's condensing and
+    QP solve on the card, every certificate below its bar, the same calls
+    on the CPU, the C++ oracle at the same cost, and the port's float64
+    condensing (raises SmokeFailure outside a bar)."""
+    mpc, robot, inputs = engine_inputs(cuda_device, 64)
+    (H, g, table, U), r = phase_oracle_certificate(cuda_device, "test", mpc, robot, inputs)
+    assert U.shape == (64, 12 * mpc.horizon) and bool(torch.isfinite(U).all())
+    assert r["kkt_max"] < 1e-7 and r["cpu_max_rel"] < 1e-8 and r["condense_H"] < 1e-9

@@ -81,3 +81,55 @@ def test_adapter_and_recorder_run_without_mujoco_or_plotting():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-4000:]
     assert res.stdout.split()[-1] == "ok"
+
+
+PORT = os.path.join(REPO, "pympc_quadruped_tpu_torch")
+
+
+def imported_modules(path: str) -> set:
+    """The absolute names a source file imports (``from a import b`` as
+    ``a.b``, ``from . import x`` as the package's own ``x``)."""
+    import ast
+
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    pkg = "pympc_quadruped_tpu_torch." + os.path.relpath(os.path.dirname(path), PORT).replace(
+        os.sep, ".")
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            if node.level:
+                base = pkg.rsplit(".", node.level - 1)[0] if node.level > 1 else pkg
+                mod = f"{base}.{node.module}" if node.module else base
+                names.update(f"{mod}.{a.name}" for a in node.names)
+            else:
+                names.update(f"{node.module}.{a.name}" for a in node.names)
+    return names
+
+
+def test_oracle_imports_only_torch_numpy_and_build():
+    """The golden model shares no code with the compute path it judges."""
+    allowed = ("torch", "numpy", "pympc_quadruped_tpu_torch._build",
+               "pympc_quadruped_tpu_torch.oracle")
+    files = sorted(os.path.join(d, f) for d, _, fs in os.walk(os.path.join(PORT, "oracle"))
+                   for f in fs if f.endswith(".py"))
+    assert {os.path.basename(f) for f in files} == {"__init__.py", "npref.py", "cpp.py"}
+    for path in files:
+        for name in imported_modules(path):
+            top = name.split(".")[0]
+            ok = top in sys.stdlib_module_names or top == "__future__" or any(
+                name == a or name.startswith(a + ".") for a in allowed)
+            assert ok, (path, name)
+
+
+def test_compute_path_does_not_import_the_oracle():
+    for sub in ("ops", "control", "env", "estimation", "parallel"):
+        for d, _, fs in os.walk(os.path.join(PORT, sub)):
+            for f in fs:
+                if f.endswith(".py"):
+                    path = os.path.join(d, f)
+                    bad = [n for n in imported_modules(path)
+                           if n.startswith("pympc_quadruped_tpu_torch.oracle") or ".oracle" in n]
+                    assert not bad, (path, bad)
