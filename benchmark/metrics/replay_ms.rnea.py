@@ -1,0 +1,7 @@
+"""Median over the traced replays of the bias forces' (RNEA) time on the
+card's clock (the ``rbd.rnea`` stamps); full-order plant only."""
+from benchmark.metrics import _spans
+
+
+def read(rec, cell, cfg):
+    return _spans.replay_median(_spans.snapshot(), "rbd.rnea")

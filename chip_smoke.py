@@ -177,7 +177,6 @@ torch, numpy and the port only.  ``--worker`` runs one process of phase 13.
 """
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 import json
 import os
@@ -768,25 +767,6 @@ def bitwise_report(got, want, rel_bar=1e-6):
     return diffs
 
 
-def graph_nodes(graph) -> dict:
-    """Node counts by type of a captured graph (``keep_graph=True``), read
-    through libcuda (cuGraphGetNodes): node type 0 kernel, 1 memcpy, 2 memset."""
-    cu = ctypes.CDLL("libcuda.so.1")
-    handle = ctypes.c_void_p(int(graph.raw_cuda_graph()))
-    n = ctypes.c_size_t(0)
-    check(cu.cuGraphGetNodes(handle, None, ctypes.byref(n)) == 0, "cuGraphGetNodes failed")
-    nodes = (ctypes.c_void_p * n.value)()
-    check(cu.cuGraphGetNodes(handle, nodes, ctypes.byref(n)) == 0, "cuGraphGetNodes failed")
-    names = {0: "kernel", 1: "memcpy", 2: "memset"}
-    counts = {}
-    for node in nodes:
-        t = ctypes.c_int(-1)
-        cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(t))
-        key = names.get(t.value, f"type{t.value}")
-        counts[key] = counts.get(key, 0) + 1
-    return counts
-
-
 def time_rollout_periods(loop, periods=10):
     """Medians over ``periods`` 20-tick periods of ``loop`` (which must
     start on a solve tick): the period, its eager solve tick, and one
@@ -871,7 +851,7 @@ def phase_rollout(dev, card, solver):
                                carry_in=carry_f, tick0=N_TICKS, solver=solver)
     torch.cuda.synchronize()
     capture_s = time.perf_counter() - t0
-    nodes = graph_nodes(loop.graph)
+    nodes = profiling.graph_nodes(loop.graph)
     for _ in range(2 * PERIOD):
         loop.step()
     period, solve_tick, replay_tick = time_rollout_periods(loop)
@@ -1113,7 +1093,7 @@ def phase_fullorder_trot(dev, card, part: str):
                                  tick0=FO_TICKS)
     torch.cuda.synchronize()
     capture_s = time.perf_counter() - t0
-    nodes = graph_nodes(loop.graph)
+    nodes = profiling.graph_nodes(loop.graph)
     for _ in range(2 * PERIOD):
         loop.step()
     period, solve_tick, replay_tick = time_rollout_periods(loop)
@@ -2038,21 +2018,25 @@ def phase_single_robot(dev, card):
 
 def phase_batch_viz(dev, card):
     """14b: ``examples/batch_viz.record_batch`` at BV_B scenarios: one
-    capture, BV_FRAMES frames, the per-gait share in band, ticks/s."""
+    capture (and no traced one, as no profiler records), BV_FRAMES frames,
+    the per-gait share in band, ticks/s."""
     torch.cuda.synchronize()
     reset_launches()
     graph_loop.CAPTURES = 0
+    traced0 = profiling.snapshot()["counters"].get("capture.traced", 0)
     t0 = time.perf_counter()
     frames, m = record_batch(BV_B, BV_SECONDS, BV_FRAME_TICKS, BV_VX, device=dev,
                              return_metrics=True)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, captures = kernel_launches(), graph_loop.CAPTURES
+    traced = profiling.snapshot()["counters"].get("capture.traced", 0) - traced0
     n_solves = BV_TICKS // PERIOD
     for name, count in launches.items():
         want = n_solves if name in ("invert_spd", "iterate") else 0
         check(count == want, f"phase 14b: kernel {name} launched {count} times, expected {want}")
     check(captures == 1, f"phase 14b: {captures} graph captures, expected one")
+    check(traced == 0, f"phase 14b: {traced} traced graph captures outside a profiler")
     check(len(frames) == BV_FRAMES and frames[-1][2].shape == (BV_B, 12),
           f"phase 14b: {len(frames)} frames, expected {BV_FRAMES}")
     ok = batch_viz_in_band(m)
@@ -2063,8 +2047,8 @@ def phase_batch_viz(dev, card):
     print(f"phase 14b: record_batch Aliengo h=10 {'/'.join(BV_GAITS)} (i % 3), 0.6-1.0 x "
           f"{BV_VX} m/s, B={BV_B}, {BV_FRAMES} frames of {BV_FRAME_TICKS} ticks ({BV_TICKS} "
           f"ticks) in {wall:.1f} s (capture and host copies included): {tps:.0f} ticks/s; "
-          f"{captures} graph capture; kernel launches invert_spd {launches['invert_spd']}, "
-          f"iterate {launches['iterate']}; in band (no divergence, mean height over the last "
+          f"{captures} graph capture, {traced} traced; kernel launches invert_spd "
+          f"{launches['invert_spd']}, iterate {launches['iterate']}; in band (no divergence, mean height over the last "
           f"{FO_TAIL} ticks in {BV_HEIGHT_BAND}): {per_gait}; diverged "
           f"{int(m['diverged'].any(dim=0).sum())} [{card}]", flush=True)
     check(all(shares[g] >= bars[g] for g in BV_GAITS), "phase 14b: a gait below its bar")

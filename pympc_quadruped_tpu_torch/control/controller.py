@@ -36,6 +36,7 @@ from pympc_quadruped_tpu_torch.models.robots import RobotParams
 from pympc_quadruped_tpu_torch.ops import gaitsched, kin, srb
 from pympc_quadruped_tpu_torch.ops.qp import admm, admm_fast, cones, ipm, riccati
 from pympc_quadruped_tpu_torch.tree import tree_map
+from pympc_quadruped_tpu_torch.utils import profiling
 
 DEFAULT_SOLVER = "admm_fast"
 SOLVERS = ("admm_fast", "riccati", "admm", "ipm", "ipm_parity")
@@ -68,14 +69,15 @@ def init_carry(horizon: int = 10, device="cuda") -> ControllerCarry:
 
 
 def _pre_solve(robot, mpc, gait, cmd, carry, obs, tick):
-    """Everything before the solve decision."""
-    ks = kin.compute_kin_state(robot, obs)
-    swing_states = gaitsched.swing_state(gait, mpc, tick)
-    table = gaitsched.gait_table(gait, mpc, tick)
-    g_slot = (-mpc.gravity).expand(ks.rpy_base.shape[:-1] + (1,))
-    x_t = torch.cat([ks.rpy_base, ks.pos_base, ks.ang_vel_base, ks.lin_vel_base,
-                     g_slot], dim=-1).float()
-    mpc_carry, vel_des_world = refmpc.integrate_desired(carry.mpc, ks, cmd, mpc)
+    """Everything before the solve decision (span ``ctrl.pre``)."""
+    with profiling.span("ctrl.pre"):
+        ks = kin.compute_kin_state(robot, obs)
+        swing_states = gaitsched.swing_state(gait, mpc, tick)
+        table = gaitsched.gait_table(gait, mpc, tick)
+        g_slot = (-mpc.gravity).expand(ks.rpy_base.shape[:-1] + (1,))
+        x_t = torch.cat([ks.rpy_base, ks.pos_base, ks.ang_vel_base, ks.lin_vel_base,
+                         g_slot], dim=-1).float()
+        mpc_carry, vel_des_world = refmpc.integrate_desired(carry.mpc, ks, cmd, mpc)
     return ks, swing_states, table, x_t, mpc_carry, vel_des_world
 
 
@@ -90,73 +92,85 @@ def _solve_branch(robot, mpc, cmd, mpc_carry, ks, x_t, vel_des_world, table,
     to zeros (a cold restart next solve).  The parity solvers start cold
     and leave the warm start alone.  A scenario whose solution comes back
     non-finite keeps its previously held GRFs (the reference's last
-    solution stays applied)."""
-    ground_z = None
-    if mpc.ground_adaptive_height:
-        # Support-plane height from stance-foot leg odometry; flight steps
-        # fall back to the all-feet mean.
-        stance_now = table.reshape(-1, mpc.horizon, 4)[:, 0, :]
-        feet_z = ks.pos_feet[:, :, 2]
-        n_st = stance_now.sum(dim=-1)
-        ground_z = torch.where(
-            n_st > 0,
-            (stance_now * feet_z).sum(dim=-1) / torch.clamp(n_st, min=1.0),
-            feet_z.mean(dim=-1),
-        )
-    mpc_carry, X = refmpc.reference_trajectory(
-        mpc_carry, x_t, vel_des_world, cmd, mpc, robot, table, ground_z=ground_z
-    )
+    solution stays applied).
 
-    yaw = x_t[:, 2]
-    feet = ks.pos_base_feet
-    if solver == "ipm_parity":
-        # Float64 condensing + the IPM's parity configuration, in float64.
-        H, H_lo, g, g_lo, mv = refmpc.build_qp_ff(robot, mpc, x_t, yaw, feet, X, table)
-        G, h_vec, _ = cones.block_constraints(table, robot.fz_max, mpc)
-        U = ipm.solve_batch(H, g, G, h_vec, ipm.PARITY_CONFIG, H_lo, g_lo)
-    elif solver in ("ipm", "admm"):
-        H, g, mv = refmpc.build_qp(robot, mpc, x_t, yaw, feet, X, table)
-        if solver == "ipm":
+    Spans: ``solve.model`` (the reference trajectory and the QP's operands:
+    the prediction model, or the condensed QP and its constraints) and
+    ``solve.qp`` (the solve, with the warm start's shift and the carry's
+    update)."""
+    with profiling.span("solve.model"):
+        ground_z = None
+        if mpc.ground_adaptive_height:
+            # Support-plane height from stance-foot leg odometry; flight steps
+            # fall back to the all-feet mean.
+            stance_now = table.reshape(-1, mpc.horizon, 4)[:, 0, :]
+            feet_z = ks.pos_feet[:, :, 2]
+            n_st = stance_now.sum(dim=-1)
+            ground_z = torch.where(
+                n_st > 0,
+                (stance_now * feet_z).sum(dim=-1) / torch.clamp(n_st, min=1.0),
+                feet_z.mean(dim=-1),
+            )
+        mpc_carry, X = refmpc.reference_trajectory(
+            mpc_carry, x_t, vel_des_world, cmd, mpc, robot, table, ground_z=ground_z
+        )
+
+        yaw = x_t[:, 2]
+        feet = ks.pos_base_feet
+        if solver == "ipm_parity":
+            # Float64 condensing + the IPM's parity configuration, in float64.
+            H, H_lo, g, g_lo, mv = refmpc.build_qp_ff(robot, mpc, x_t, yaw, feet, X, table)
             G, h_vec, _ = cones.block_constraints(table, robot.fz_max, mpc)
-            U = ipm.solve_batch(H, g, G, h_vec, ipm_cfg)
-        else:
-            A, l, u = admm.admm_constraints(table, robot.fz_max, mpc)
-            U = admm.solve_batch(H, g, A, l, u, admm_cfg)
-    else:
-        U_ws = torch.cat([mpc_carry.qp_primal[:, 12:], mpc_carry.qp_primal[:, -12:]], dim=-1)
-        lam_ws = torch.cat([mpc_carry.qp_dual[:, 20:], mpc_carry.qp_dual[:, -20:]], dim=-1)
-        if solver == "riccati":
+        elif solver == "riccati":
             # Sparse O(h) path: no condensing, Ad/Bd feed the Riccati-ADMM solve.
             Ad, Bd = srb.discretize(*srb.state_space(robot, yaw, feet), mpc.dt_predict)
             mv = cones.variable_mask(table, mpc)
-            U, lam = riccati.solve_batch(
-                Ad, Bd, x_t, X, table, robot.fz_max, mpc, riccati_cfg,
-                warm=(U_ws, lam_ws), return_duals=True,
-            )
         else:
             H, g, mv = refmpc.build_qp(robot, mpc, x_t, yaw, feet, X, table)
-            U, lam = admm_fast.solve_batch(
-                H, g, table, robot.fz_max, mpc, admm_fast_cfg,
-                warm=(U_ws, lam_ws), return_duals=True,
+            if solver == "ipm":
+                G, h_vec, _ = cones.block_constraints(table, robot.fz_max, mpc)
+            elif solver == "admm":
+                A, l, u = admm.admm_constraints(table, robot.fz_max, mpc)
+
+    with profiling.span("solve.qp"):
+        if solver == "ipm_parity":
+            U = ipm.solve_batch(H, g, G, h_vec, ipm.PARITY_CONFIG, H_lo, g_lo)
+        elif solver == "ipm":
+            U = ipm.solve_batch(H, g, G, h_vec, ipm_cfg)
+        elif solver == "admm":
+            U = admm.solve_batch(H, g, A, l, u, admm_cfg)
+        else:
+            U_ws = torch.cat([mpc_carry.qp_primal[:, 12:], mpc_carry.qp_primal[:, -12:]], dim=-1)
+            lam_ws = torch.cat([mpc_carry.qp_dual[:, 20:], mpc_carry.qp_dual[:, -20:]], dim=-1)
+            if solver == "riccati":
+                U, lam = riccati.solve_batch(
+                    Ad, Bd, x_t, X, table, robot.fz_max, mpc, riccati_cfg,
+                    warm=(U_ws, lam_ws), return_duals=True,
+                )
+            else:
+                U, lam = admm_fast.solve_batch(
+                    H, g, table, robot.fz_max, mpc, admm_fast_cfg,
+                    warm=(U_ws, lam_ws), return_duals=True,
+                )
+            ok_ws = (torch.isfinite(U).all(dim=-1, keepdim=True)
+                     & torch.isfinite(lam).all(dim=-1, keepdim=True))
+            mpc_carry = dataclasses.replace(
+                mpc_carry,
+                qp_primal=torch.where(ok_ws, U * mv, torch.zeros_like(U)),
+                qp_dual=torch.where(ok_ws, lam, torch.zeros_like(lam)),
             )
-        ok_ws = (torch.isfinite(U).all(dim=-1, keepdim=True)
-                 & torch.isfinite(lam).all(dim=-1, keepdim=True))
-        mpc_carry = dataclasses.replace(
-            mpc_carry,
-            qp_primal=torch.where(ok_ws, U * mv, torch.zeros_like(U)),
-            qp_dual=torch.where(ok_ws, lam, torch.zeros_like(lam)),
-        )
-    ok = torch.isfinite(U).all(dim=-1, keepdim=True)
-    forces = torch.where(ok, (U * mv)[:, :12], mpc_carry.contact_forces)
+        ok = torch.isfinite(U).all(dim=-1, keepdim=True)
+        forces = torch.where(ok, (U * mv)[:, :12], mpc_carry.contact_forces)
     return dataclasses.replace(mpc_carry, contact_forces=forces), forces
 
 
 def _post_solve(robot, mpc, gait, cmd, carry, ks, swing_states, mpc_carry, forces):
-    """Swing targets and leg torques from the held forces."""
-    swing_carry, pos_t, vel_t = swing.update_swing(
-        robot, mpc, gait, cmd, ks, carry.swing, swing_states
-    )
-    torques = legctrl.leg_torques(robot, ks, forces, swing_states, pos_t, vel_t)
+    """Swing targets and leg torques from the held forces (span ``ctrl.post``)."""
+    with profiling.span("ctrl.post"):
+        swing_carry, pos_t, vel_t = swing.update_swing(
+            robot, mpc, gait, cmd, ks, carry.swing, swing_states
+        )
+        torques = legctrl.leg_torques(robot, ks, forces, swing_states, pos_t, vel_t)
     out = ControllerOutput(
         torques=torques, contact_forces=forces, swing_states=swing_states,
         pos_targets=pos_t, vel_targets=vel_t, kin=ks,

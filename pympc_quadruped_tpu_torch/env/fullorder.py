@@ -39,6 +39,7 @@ from pympc_quadruped_tpu_torch.models.mpc import MpcParams
 from pympc_quadruped_tpu_torch.models.robots import RobotParams, a1
 from pympc_quadruped_tpu_torch.ops import kin, lie, rbd
 from pympc_quadruped_tpu_torch.tree import tile, tree_map
+from pympc_quadruped_tpu_torch.utils import profiling
 
 
 def rbd_model(robot: RobotParams, spec: mjcf.MjcfSpec) -> rbd.RbdModel:
@@ -311,12 +312,14 @@ class RolloutLoop(GraphLoop):
     """One :func:`rollout` call's loop: its buffers, the full-order tick
     and, on a CUDA device, the captured non-solve tick.  The arguments are
     :func:`rollout`'s; ``num_ticks`` sizes the metric rows and bounds the
-    ticks a loop can take."""
+    ticks a loop can take; ``traced`` also captures the traced graph
+    (:mod:`..utils.profiling`'s level 2), which :func:`rollout` asks for
+    only while a ``torch.profiler`` records."""
 
     def __init__(self, robot_b, mpc, gait_b, cmd_b, num_ticks, model_b=None, cp=None,
                  state0=None, carry0=None, solver=ctrl.DEFAULT_SOLVER, spec=None,
                  terrain=None, auto_reset=False, estimator=None, sensor_noise=None, key=None,
-                 cmd_ramp_ticks=None, substeps=1, tick0=0, solver_cfg=None):
+                 cmd_ramp_ticks=None, substeps=1, tick0=0, solver_cfg=None, traced=True):
         ctrl.check_solver(solver)
         dev = robot_b.mass.device
         B = robot_b.mass.shape[0]
@@ -350,79 +353,86 @@ class RolloutLoop(GraphLoop):
         keys = ["vel_err", "height", "upright", "diverged"]
         if self.use_kf:
             keys += ["est_pos_err", "est_vel_err"]
-        self._start(state0, full0, keys, B, dev)
+        self._start(state0, full0, keys, B, dev, traced)
 
     def _integrate(self, state, tau):
         """The tick's physics: one step at dt, or ``substeps`` steps at
         dt/substeps under the held torque, reporting the substeps' mean
-        contact force (the tick's contact impulse over dt)."""
+        contact force (the tick's contact impulse over dt).  Span
+        ``tick.plant``, over every substep."""
         step = lambda s, dt: physics_step(self.model, self.robot, self.cp, s, tau, dt,
                                           self.terrain)
-        if self.substeps == 1:
-            return step(state, self.dt)
-        forces = []
-        for _ in range(self.substeps):
-            state, f = step(state, self.sub_dt)
-            forces.append(f)
-        return state, torch.stack(forces).mean(dim=0)
+        with profiling.span("tick.plant"):
+            if self.substeps == 1:
+                return step(state, self.dt)
+            forces = []
+            for _ in range(self.substeps):
+                state, f = step(state, self.sub_dt)
+                forces.append(f)
+            return state, torch.stack(forces).mean(dim=0)
 
     def _compute(self, state, carry, tick, solve: bool):
+        """One closed-loop tick (spans ``tick.controller``, ``tick.plant`` in
+        :meth:`_integrate`, ``tick.rows``), as in :mod:`.srb_env`."""
         robot, mpc = self.robot, self.mpc
         B = robot.mass.shape[0]
-        if self.use_kf:
-            c_carry, kf_state, prev_vworld, prev_f_feet = carry
-            # IMU and encoders from the articulated state.  The specific
-            # force is the trunk acceleration plus g in the body frame: the
-            # difference of the world velocity over the last step.
-            R = lie.quat_to_rotmat(state.quat)
-            vworld = (R @ state.u[:, 3:6, None])[..., 0]
-            acc = (vworld - prev_vworld) / self.dt
-            acc = torch.cat([acc[:, :2], acc[:, 2:] + mpc.gravity], dim=-1)
-            a_spec = (R.transpose(-1, -2) @ acc[..., None])[..., 0]
-            idx = (tick - self.tick0).long().reshape(1)
-            eps = self.draws.index_select(0, idx)[0]
-            noise = self.sensor_noise
-            gyro = state.u[:, :3] + noise.gyro * eps[:, 0:3]
-            accel = a_spec + noise.accel * eps[:, 3:6]
-            q_m = state.q + noise.encoder_q * eps[:, 6:18]
-            qd_m = state.u[:, 6:] + noise.encoder_qd * eps[:, 18:30]
-            # Measured contact: the normal force of the last physics step.
-            touch = (prev_f_feet[:, :, 2] > 1.0).float()
-            kf_state = kf.update(kf_state, robot, gyro, accel, q_m, qd_m, touch, self.estimator)
-            obs = kf.to_obs(kf_state, gyro, q_m, qd_m)
-        else:
-            c_carry = carry
-            obs = observe(robot, state)
-        cmd = (self.cmd if self.cmd_ramp_ticks is None
-               else self.cmd.ramped(tick, self.cmd_ramp_ticks))
-        c_carry, out = ctrl.step_gated(robot, mpc, self.gait, cmd, c_carry, obs, tick, solve,
-                                       self.solver, **self.solver_cfg)
+        with profiling.span("tick.controller"):
+            if self.use_kf:
+                c_carry, kf_state, prev_vworld, prev_f_feet = carry
+                # IMU and encoders from the articulated state.  The specific
+                # force is the trunk acceleration plus g in the body frame: the
+                # difference of the world velocity over the last step.
+                R = lie.quat_to_rotmat(state.quat)
+                vworld = (R @ state.u[:, 3:6, None])[..., 0]
+                acc = (vworld - prev_vworld) / self.dt
+                acc = torch.cat([acc[:, :2], acc[:, 2:] + mpc.gravity], dim=-1)
+                a_spec = (R.transpose(-1, -2) @ acc[..., None])[..., 0]
+                idx = (tick - self.tick0).long().reshape(1)
+                eps = self.draws.index_select(0, idx)[0]
+                noise = self.sensor_noise
+                gyro = state.u[:, :3] + noise.gyro * eps[:, 0:3]
+                accel = a_spec + noise.accel * eps[:, 3:6]
+                q_m = state.q + noise.encoder_q * eps[:, 6:18]
+                qd_m = state.u[:, 6:] + noise.encoder_qd * eps[:, 18:30]
+                # Measured contact: the normal force of the last physics step.
+                touch = (prev_f_feet[:, :, 2] > 1.0).float()
+                kf_state = kf.update(kf_state, robot, gyro, accel, q_m, qd_m, touch,
+                                     self.estimator)
+                obs = kf.to_obs(kf_state, gyro, q_m, qd_m)
+            else:
+                c_carry = carry
+                obs = observe(robot, state)
+            cmd = (self.cmd if self.cmd_ramp_ticks is None
+                   else self.cmd.ramped(tick, self.cmd_ramp_ticks))
+            c_carry, out = ctrl.step_gated(robot, mpc, self.gait, cmd, c_carry, obs, tick, solve,
+                                           self.solver, **self.solver_cfg)
         state, f_feet = self._integrate(state, out.torques)
-        ground_b = _ground(self.terrain, state.pos[:, None, :])[:, 0]
+        with profiling.span("tick.rows"):
+            ground_b = _ground(self.terrain, state.pos[:, None, :])[:, 0]
 
-        bad = _diverged(state, ground_b)
-        # The carry holds the pre-step world velocity: next tick's difference
-        # spans this tick's physics step.
-        new_carry = (c_carry, kf_state, vworld, f_feet) if self.use_kf else c_carry
-        if self.auto_reset:
-            pick = lambda a, b: tree_map(
-                lambda x, y: torch.where(bad.reshape((B,) + (1,) * (x.dim() - 1)), x, y), a, b)
-            state = pick(self.state0, state)
-            new_carry = pick(self.carry0, new_carry)
+            bad = _diverged(state, ground_b)
+            # The carry holds the pre-step world velocity: next tick's difference
+            # spans this tick's physics step.
+            new_carry = (c_carry, kf_state, vworld, f_feet) if self.use_kf else c_carry
+            if self.auto_reset:
+                pick = lambda a, b: tree_map(
+                    lambda x, y: torch.where(bad.reshape((B,) + (1,) * (x.dim() - 1)), x, y), a, b)
+                state = pick(self.state0, state)
+                new_carry = pick(self.carry0, new_carry)
 
-        R = lie.quat_to_rotmat(state.quat)
-        v_world = (R @ state.u[:, 3:6, None])[..., 0]
-        vel_des = (R @ cmd.vel_base_des[..., None])[..., 0]
-        row = {
-            "vel_err": torch.linalg.vector_norm(v_world[:, :2] - vel_des[:, :2], dim=-1),
-            "height": state.pos[:, 2],
-            "upright": R[:, 2, 2],
-            "diverged": bad,
-        }
-        if self.use_kf:
-            est = new_carry[1]
-            row["est_pos_err"] = torch.linalg.vector_norm(est.x[:, 0:3] - state.pos, dim=-1)
-            row["est_vel_err"] = torch.linalg.vector_norm(est.x[:, 3:6] - v_world, dim=-1)
+            R = lie.quat_to_rotmat(state.quat)
+            v_world = (R @ state.u[:, 3:6, None])[..., 0]
+            vel_des = (R @ cmd.vel_base_des[..., None])[..., 0]
+            row = {
+                "vel_err": torch.linalg.vector_norm(v_world[:, :2] - vel_des[:, :2], dim=-1),
+                "height": state.pos[:, 2],
+                "upright": R[:, 2, 2],
+                "diverged": bad,
+            }
+            if self.use_kf:
+                est = new_carry[1]
+                row["est_pos_err"] = torch.linalg.vector_norm(est.x[:, 0:3] - state.pos, dim=-1)
+                row["est_vel_err"] = torch.linalg.vector_norm(est.x[:, 3:6] - v_world, dim=-1)
         return state, new_carry, row
 
 
@@ -486,7 +496,8 @@ def rollout(
     (:class:`RolloutLoop`); a capture or replay failure raises."""
     loop = RolloutLoop(robot_b, mpc, gait_b, cmd_b, num_ticks, model_b, cp, state0, carry0,
                        solver, spec, terrain, auto_reset, estimator, sensor_noise, key,
-                       cmd_ramp_ticks, substeps, tick0, solver_cfg)
+                       cmd_ramp_ticks, substeps, tick0, solver_cfg,
+                       traced=profiling.recording())
     for _ in range(num_ticks):
         loop.step()
     return loop.result(return_full_carry)

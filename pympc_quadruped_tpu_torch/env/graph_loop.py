@@ -10,9 +10,19 @@ tick replays one ``torch.cuda.CUDAGraph`` of the non-solve tick, captured
 once per loop over the static tensors.  On CPU tensors the same tick runs
 eagerly on every tick.
 
+The loop records its spans in :mod:`..utils.profiling`: the tick's layers
+(``tick.controller``, ``tick.plant``, ``tick.rows``) and their children
+count their kernel nodes while the plain graph is captured, and, for a
+loop built ``traced`` while profiling is on, the tick is captured a second
+time with a stamp kernel at each span's entry and exit (the traced graph,
+sharing the plain graph's memory), which a step replays instead while a
+``torch.profiler`` records.  A loop its caller steps is built ``traced``; a
+``rollout()``, which builds its loop and runs it through in one call, only
+while a profiler records.
+
 An environment subclasses it with its ``_compute`` (one tick from
 (state, carry) at the device tick) and hands :meth:`_start` its initial
-state, carry and metric keys.
+state, carry and metric keys (and whether to capture the traced graph).
 """
 from __future__ import annotations
 
@@ -22,6 +32,7 @@ import torch
 
 from pympc_quadruped_tpu_torch.control import controller as ctrl
 from pympc_quadruped_tpu_torch.tree import tree_map
+from pympc_quadruped_tpu_torch.utils import profiling
 
 
 def _copy_into(dst, src):
@@ -29,28 +40,27 @@ def _copy_into(dst, src):
     tree_map(lambda d, s: d.copy_(s), dst, src)
 
 
-#: CUDA graphs captured by :func:`capture_graph` in this process.
+#: Plain graphs captured by :class:`GraphLoop` in this process: one per loop.
 CAPTURES = 0
 
 
-def capture_graph(body, warmup=None) -> torch.cuda.CUDAGraph:
-    """``body()`` captured in a CUDA graph, after two calls of ``warmup``
-    (``body`` unless given) on a side stream.  A capture failure raises."""
-    global CAPTURES
+def capture_graph(body, warmup=None, pool=None) -> torch.cuda.CUDAGraph:
+    """``body()`` captured in a CUDA graph (in memory pool ``pool``, if
+    given), after two calls of ``warmup`` (``body`` unless given) on a side
+    stream, in which spans do nothing.  A capture failure raises."""
     warmup = body if warmup is None else warmup
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
+    with torch.cuda.stream(side), profiling.quiet():
         for _ in range(2):
             warmup()
     torch.cuda.current_stream().wait_stream(side)
     # keep_graph: the captured cudaGraph_t stays readable
     # (``raw_cuda_graph()``, e.g. to count its nodes) beside its executable.
     graph = torch.cuda.CUDAGraph(keep_graph=True)
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, pool=pool):
         body()
     graph.instantiate()
-    CAPTURES += 1
     return graph
 
 
@@ -77,10 +87,12 @@ class GraphLoop:
         ``tick``: returns (state', carry', {metric: (B,) row})."""
         raise NotImplementedError
 
-    def _start(self, state, carry, metric_keys, batch: int, device) -> None:
+    def _start(self, state, carry, metric_keys, batch: int, device, traced: bool = True) -> None:
         """Allocate the buffers from copies of ``state`` and ``carry`` and,
-        on a CUDA device, capture the non-solve tick."""
+        on a CUDA device, capture the non-solve tick (and, with ``traced``,
+        its traced graph)."""
         self.next_tick = self.tick0
+        self.traced = traced
         self.buf = Buffers(
             state=tree_map(torch.clone, state),
             carry=tree_map(torch.clone, carry),
@@ -89,36 +101,71 @@ class GraphLoop:
                                     dtype=torch.bool if k == "diverged" else torch.float32)
                      for k in metric_keys},
         )
-        self.graph = self._capture() if torch.device(device).type == "cuda" else None
+        self.loop_id = profiling.new_loop(device, self.tick0, self.num_ticks)
+        self.cuda = torch.device(device).type == "cuda"
+        self.graph = self.traced_graph = None
+        if self.cuda:
+            self._capture()
 
     def _tick(self, buf: Buffers, solve: bool) -> None:
         """One tick on ``buf``: every output written back into its static
         input, each metric stored at the tick's row, the device tick advanced."""
         state, carry, row = self._compute(buf.state, buf.carry, buf.tick, solve)
-        idx = (buf.tick - self.tick0).long().reshape(1)
-        for k, v in row.items():
-            buf.metrics[k].index_copy_(0, idx, v[None])
-        _copy_into(buf.state, state)
-        _copy_into(buf.carry, carry)
-        buf.tick.add_(1)
+        with profiling.span("tick.rows"):
+            idx = (buf.tick - self.tick0).long().reshape(1)
+            for k, v in row.items():
+                buf.metrics[k].index_copy_(0, idx, v[None])
+            _copy_into(buf.state, state)
+            _copy_into(buf.carry, carry)
+            buf.tick.add_(1)
 
-    def _capture(self) -> torch.cuda.CUDAGraph:
-        """Capture the non-solve tick over ``self.buf``, after a warm-up over
-        copies of the buffers (which leaves them as they were)."""
+    def _capture(self) -> None:
+        """Capture the non-solve tick over ``self.buf`` (the plain graph),
+        after a warm-up over copies of the buffers (which leaves them as they
+        were), its spans counting their kernel nodes; then, for a loop
+        built ``traced`` while profiling is on, the traced graph."""
+        global CAPTURES
         scratch = tree_map(torch.clone, self.buf)
-        return capture_graph(lambda: self._tick(self.buf, solve=False),
-                             warmup=lambda: self._tick(scratch, solve=False))
+
+        def counted():
+            with profiling.count_nodes(self.loop_id):
+                self._tick(self.buf, solve=False)
+
+        def stamped():
+            with profiling.emit_stamps(self.loop_id):
+                self._tick(self.buf, solve=False)
+
+        with profiling.tick(self.loop_id, self.tick0):
+            with profiling.span("loop.capture"):
+                self.graph = capture_graph(counted,
+                                           warmup=lambda: self._tick(scratch, solve=False))
+            CAPTURES += 1
+            if self.traced and profiling.prepare_stamps(self.loop_id, self.buf.tick):
+                with profiling.span("loop.capture"):
+                    self.traced_graph = capture_graph(stamped, warmup=lambda: None,
+                                                      pool=self.graph.pool())
+                profiling.count("capture.traced")
 
     def step(self) -> None:
-        """Advance one tick: the solve tick eagerly, any other by replay."""
-        if self.next_tick >= self.tick0 + self.num_ticks:
+        """Advance one tick: the solve tick eagerly, any other by replay
+        (of the traced graph while a ``torch.profiler`` records)."""
+        tick = self.next_tick
+        if tick >= self.tick0 + self.num_ticks:
             raise IndexError(f"the loop was sized for {self.num_ticks} ticks")
-        if ctrl.is_solve_tick(self.mpc, self.next_tick):
-            self._tick(self.buf, solve=True)
-        elif self.graph is not None:
-            self.graph.replay()
-        else:
-            self._tick(self.buf, solve=False)
+        solve = ctrl.is_solve_tick(self.mpc, tick)
+        period = tick - tick % self.mpc.iterations_between_mpc
+        with profiling.tick(self.loop_id, period, events=solve and self.cuda) as traced:
+            if solve:
+                with profiling.solve_tick(self.cuda):
+                    self._tick(self.buf, solve=True)
+            elif self.graph is not None:
+                graph = self.graph
+                if traced and self.traced_graph is not None:
+                    graph = self.traced_graph
+                with profiling.span("tick.replay"):
+                    graph.replay()
+            else:
+                self._tick(self.buf, solve=False)
         self.next_tick += 1
 
     def result(self, return_full_carry: bool = False):

@@ -34,6 +34,7 @@ from pympc_quadruped_tpu_torch.models.mpc import MpcParams
 from pympc_quadruped_tpu_torch.models.robots import RobotParams
 from pympc_quadruped_tpu_torch.ops import gaitsched, kin, lie
 from pympc_quadruped_tpu_torch.tree import tile, tree_map
+from pympc_quadruped_tpu_torch.utils import profiling
 
 
 @dataclass
@@ -295,12 +296,14 @@ class RolloutLoop(GraphLoop):
     :meth:`step` advances one tick: a solve tick (host gate) runs eagerly,
     any other tick replays the graph (or runs eagerly on the CPU).  The
     arguments are :func:`rollout`'s; ``num_ticks`` sizes the metric rows
-    and bounds the ticks a loop can take."""
+    and bounds the ticks a loop can take; ``traced`` also captures the
+    traced graph (:mod:`..utils.profiling`'s level 2), which :func:`rollout`
+    asks for only while a ``torch.profiler`` records."""
 
     def __init__(self, robot, mpc, gait, cmd, num_ticks, init_state=None,
                  solver=ctrl.DEFAULT_SOLVER, terrain=None, auto_reset=True, estimator=None,
                  sensor_noise=None, key=None, carry_in=None, tick0=0, cmd_ramp_ticks=None,
-                 contact_source="plan", solver_cfg=None, noise_rows=None):
+                 contact_source="plan", solver_cfg=None, noise_rows=None, traced=True):
         ctrl.check_solver(solver)
         if contact_source not in ("plan", "measured"):
             raise ValueError(f"unknown contact_source {contact_source!r}")
@@ -330,64 +333,70 @@ class RolloutLoop(GraphLoop):
             keys += ["est_pos_err", "est_vel_err"]
             if contact_source == "measured":
                 keys.append("contact_mismatch")
-        self._start(init_state, start, keys, B, dev)
+        self._start(init_state, start, keys, B, dev, traced)
 
     def _compute(self, state, carry, tick, solve: bool):
         """One closed-loop tick from (state, carry) at the device tick
-        ``tick``: returns (state', carry', metric row)."""
+        ``tick``: returns (state', carry', metric row).  Spans
+        ``tick.controller`` (the observation or the estimator, the controller
+        and the swing targets), ``tick.plant`` and ``tick.rows`` (divergence,
+        auto-reset and the metric row)."""
         robot, mpc, gait = self.robot, self.mpc, self.gait
         B = robot.mass.shape[0]
-        if self.use_kf:
-            c_carry, kf_state, held_forces = carry
-            idx = (tick - self.tick0).long().reshape(1)
-            eps = self.draws.index_select(0, idx)[0]
-            sensors = _sensors_from_draws(robot, state, held_forces, eps, self.sensor_noise)
-            plan_contact = (gaitsched.swing_state(gait, mpc, tick) == 0.0).float()
-            if self.contact_source == "measured":
-                # A touch sensor fires on the held GRF of a pinned foot: it
-                # lags the plan at every stance onset.
-                held_fz = held_forces.reshape(B, 4, 3)[:, :, 2]
-                contact = plan_contact * (held_fz > 1.0).float()
+        with profiling.span("tick.controller"):
+            if self.use_kf:
+                c_carry, kf_state, held_forces = carry
+                idx = (tick - self.tick0).long().reshape(1)
+                eps = self.draws.index_select(0, idx)[0]
+                sensors = _sensors_from_draws(robot, state, held_forces, eps, self.sensor_noise)
+                plan_contact = (gaitsched.swing_state(gait, mpc, tick) == 0.0).float()
+                if self.contact_source == "measured":
+                    # A touch sensor fires on the held GRF of a pinned foot: it
+                    # lags the plan at every stance onset.
+                    held_fz = held_forces.reshape(B, 4, 3)[:, :, 2]
+                    contact = plan_contact * (held_fz > 1.0).float()
+                else:
+                    contact = plan_contact
+                kf_state = kf.update(kf_state, robot, sensors.gyro, sensors.accel, sensors.q,
+                                     sensors.qdot, contact, self.estimator)
+                obs = kf.to_obs(kf_state, sensors.gyro, sensors.q, sensors.qdot)
             else:
-                contact = plan_contact
-            kf_state = kf.update(kf_state, robot, sensors.gyro, sensors.accel, sensors.q,
-                                 sensors.qdot, contact, self.estimator)
-            obs = kf.to_obs(kf_state, sensors.gyro, sensors.q, sensors.qdot)
-        else:
-            c_carry = carry
-            obs = observe(robot, state)
-        cmd = (self.cmd if self.cmd_ramp_ticks is None
-               else self.cmd.ramped(tick, self.cmd_ramp_ticks))
-        c_carry, out = ctrl.step_gated(robot, mpc, gait, cmd, c_carry, obs, tick, solve,
-                                       self.solver, **self.solver_cfg)
-        # World-frame swing-foot targets, as loop.run_ticks forms them.
-        swing_pos_world = state.pos[:, None, :] + (
-            out.kin.R_base[:, None] @ out.pos_targets[..., None]
-        )[..., 0]
-        state = physics_step(robot, mpc, state, out.contact_forces, out.swing_states,
-                             swing_pos_world, self.terrain)
+                c_carry = carry
+                obs = observe(robot, state)
+            cmd = (self.cmd if self.cmd_ramp_ticks is None
+                   else self.cmd.ramped(tick, self.cmd_ramp_ticks))
+            c_carry, out = ctrl.step_gated(robot, mpc, gait, cmd, c_carry, obs, tick, solve,
+                                           self.solver, **self.solver_cfg)
+            # World-frame swing-foot targets, as loop.run_ticks forms them.
+            swing_pos_world = state.pos[:, None, :] + (
+                out.kin.R_base[:, None] @ out.pos_targets[..., None]
+            )[..., 0]
+        with profiling.span("tick.plant"):
+            state = physics_step(robot, mpc, state, out.contact_forces, out.swing_states,
+                                 swing_pos_world, self.terrain)
 
-        bad = _diverged(state)
-        new_carry = (c_carry, kf_state, out.contact_forces) if self.use_kf else c_carry
-        if self.auto_reset:
-            pick = lambda a, b: tree_map(
-                lambda x, y: torch.where(bad.reshape((B,) + (1,) * (x.dim() - 1)), x, y), a, b)
-            state = pick(self.init_state, state)
-            new_carry = pick(self.carry0, new_carry)
+        with profiling.span("tick.rows"):
+            bad = _diverged(state)
+            new_carry = (c_carry, kf_state, out.contact_forces) if self.use_kf else c_carry
+            if self.auto_reset:
+                pick = lambda a, b: tree_map(
+                    lambda x, y: torch.where(bad.reshape((B,) + (1,) * (x.dim() - 1)), x, y), a, b)
+                state = pick(self.init_state, state)
+                new_carry = pick(self.carry0, new_carry)
 
-        vel_des_world = (out.kin.R_base @ cmd.vel_base_des[..., None])[..., 0]
-        row = {
-            "vel_err": torch.linalg.vector_norm(state.vel - vel_des_world, dim=-1),
-            "height": state.pos[:, 2],
-            "upright": out.kin.R_base[:, 2, 2],
-            "diverged": bad,
-        }
-        if self.use_kf:
-            est = new_carry[1]
-            row["est_pos_err"] = torch.linalg.vector_norm(est.x[:, 0:3] - state.pos, dim=-1)
-            row["est_vel_err"] = torch.linalg.vector_norm(est.x[:, 3:6] - state.vel, dim=-1)
-            if self.contact_source == "measured":
-                row["contact_mismatch"] = (contact - plan_contact).abs().mean(dim=-1)
+            vel_des_world = (out.kin.R_base @ cmd.vel_base_des[..., None])[..., 0]
+            row = {
+                "vel_err": torch.linalg.vector_norm(state.vel - vel_des_world, dim=-1),
+                "height": state.pos[:, 2],
+                "upright": out.kin.R_base[:, 2, 2],
+                "diverged": bad,
+            }
+            if self.use_kf:
+                est = new_carry[1]
+                row["est_pos_err"] = torch.linalg.vector_norm(est.x[:, 0:3] - state.pos, dim=-1)
+                row["est_vel_err"] = torch.linalg.vector_norm(est.x[:, 3:6] - state.vel, dim=-1)
+                if self.contact_source == "measured":
+                    row["contact_mismatch"] = (contact - plan_contact).abs().mean(dim=-1)
         return state, new_carry, row
 
 
@@ -444,7 +453,8 @@ def rollout(
     (:class:`RolloutLoop`); a capture or replay failure raises."""
     loop = RolloutLoop(robot, mpc, gait, cmd, num_ticks, init_state, solver, terrain,
                        auto_reset, estimator, sensor_noise, key, carry_in, tick0,
-                       cmd_ramp_ticks, contact_source, solver_cfg, noise_rows)
+                       cmd_ramp_ticks, contact_source, solver_cfg, noise_rows,
+                       traced=profiling.recording())
     for _ in range(num_ticks):
         loop.step()
     return loop.result(return_full_carry)

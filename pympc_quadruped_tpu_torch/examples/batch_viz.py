@@ -54,10 +54,12 @@ def record_batch(n, seconds, frame_ticks=40, vx=0.6, device="cuda", return_metri
     starts ``range(0, seconds * 1000, frame_ticks)``.  With
     ``return_metrics``, also the loop's (ticks, n) metric tensors."""
     from pympc_quadruped_tpu_torch.env import fullorder
+    from pympc_quadruped_tpu_torch.utils import profiling
 
     robot, mpc, gait, cmd = batch_inputs(n, vx, device)
     starts = range(0, int(seconds * 1000), frame_ticks)
-    loop = fullorder.RolloutLoop(robot, mpc, gait, cmd, len(starts) * frame_ticks)
+    loop = fullorder.RolloutLoop(robot, mpc, gait, cmd, len(starts) * frame_ticks,
+                                 traced=profiling.recording())
     frames = []
     for t0 in starts:
         for _ in range(frame_ticks):

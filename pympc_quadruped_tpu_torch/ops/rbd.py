@@ -30,6 +30,8 @@ from dataclasses import dataclass
 
 import torch
 
+from pympc_quadruped_tpu_torch.utils import profiling
+
 
 @dataclass
 class RbdModel:
@@ -297,14 +299,18 @@ def forward_dynamics(
 
     ``tau`` (...,12) are the hinge motor torques; the base rows carry no
     actuation.  Joint damping is an explicit passive force -d*qd on the
-    right-hand side, MuJoCo's continuous passive-force model."""
-    C = bias_forces(model, q, u, R_base, f_feet_world)
+    right-hand side, MuJoCo's continuous passive-force model.  Spans
+    ``rbd.rnea`` (the bias forces) and ``rbd.crba`` (the mass matrix)."""
+    with profiling.span("rbd.rnea"):
+        C = bias_forces(model, q, u, R_base, f_feet_world)
     lead = q.shape[:-1]
     qd = u[..., 6:]
     damp = model.damping.reshape(lead + (12,)) * qd
     zeros6 = torch.zeros(lead + (6,), dtype=q.dtype, device=q.device)
     rhs = torch.cat([zeros6, tau], dim=-1) - C - torch.cat([zeros6, damp], dim=-1)
-    return spd_solve(mass_matrix(model, q), rhs)
+    with profiling.span("rbd.crba"):
+        H = mass_matrix(model, q)
+    return spd_solve(H, rhs)
 
 
 def u_from_mujoco(qvel: torch.Tensor, R_base: torch.Tensor) -> torch.Tensor:

@@ -20,11 +20,13 @@ from chip_smoke import (B_MAIN, CONE_SHARE, INV_RATIO_BAR, NAN_BACKENDS, PARITY_
 from pympc_quadruped_tpu_torch import tree
 from pympc_quadruped_tpu_torch.control import controller as ctrl
 from pympc_quadruped_tpu_torch.control import refmpc
-from pympc_quadruped_tpu_torch.env import fullorder, srb_env, terrain
+from pympc_quadruped_tpu_torch.env import fullorder, graph_loop, srb_env, terrain
 from pympc_quadruped_tpu_torch.estimation import kf
 from pympc_quadruped_tpu_torch.loop import run_ticks
 from pympc_quadruped_tpu_torch.models import Command, Gaits, a1, aliengo, default_mpc_params
+from pympc_quadruped_tpu_torch.ops import srb
 from pympc_quadruped_tpu_torch.ops.qp import admm_cuda, admm_fast, riccati, riccati_cuda
+from pympc_quadruped_tpu_torch.utils import profiling
 
 
 @pytest.fixture
@@ -362,3 +364,134 @@ def test_cuda_oracle_certifies_the_main_path_qps(cuda_device):
     (H, g, table, U), r = phase_oracle_certificate(cuda_device, "test", mpc, robot, inputs)
     assert U.shape == (64, 12 * mpc.horizon) and bool(torch.isfinite(U).all())
     assert r["kkt_max"] < 1e-7 and r["cpu_max_rel"] < 1e-8 and r["condense_H"] < 1e-9
+
+
+def _loop_maker(dev, plant, solver, ticks, B=64):
+    """A function that builds the same loop of ``plant`` each call, and its
+    MPC parameters: the h=16 trot (SRB) or phase 11b's full-order trot."""
+    if plant == "srb":
+        mpc, robot, gait, cmd, _, state = closed_loop_setup(dev, B=B)
+        return mpc, lambda: srb_env.RolloutLoop(robot, mpc, gait, cmd, ticks, init_state=state,
+                                                solver=solver)
+    mpc, robot, gait, cmd, state0 = fullorder_setup(dev, "11b", B)
+    return mpc, lambda: fullorder.RolloutLoop(robot, mpc, gait, cmd, ticks, state0=state0,
+                                              solver=solver)
+
+
+def _under_profiler(loop, ticks):
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(ticks):
+            loop.step()
+    return prof
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plant,solver", [("srb", "riccati"), ("fullorder", "admm_fast")])
+def test_cuda_traced_graph_equals_plain_graph(cuda_device, plant, solver):
+    """100 ticks replayed from the traced graph (under a ``torch.profiler``)
+    bit for bit the same ticks replayed from the plain graph; one plain
+    capture a loop; every traced replay's stamps non-zero and in capture
+    order, the solve ticks' rows empty; the layers' kernel nodes sum to the
+    plain graph's; the eager solve ticks' spans carry device times; the
+    spans are host events of the profiler's trace only."""
+    ticks = 100
+    mpc, make = _loop_maker(cuda_device, plant, solver, ticks)
+    captures = graph_loop.CAPTURES
+    plain = make()
+    assert graph_loop.CAPTURES == captures + 1 and plain.traced_graph is not None
+    for _ in range(ticks):
+        plain.step()
+    traced = make()
+    prof = _under_profiler(traced, ticks)
+    torch.cuda.synchronize()
+    # The spans are host events of the trace, and lay nothing on the
+    # device's timeline (a busy share would count it).
+    on = lambda kind: {e.name for e in prof.events() if e.device_type == kind}
+    assert {"tick.solve", "tick.replay", "solve.qp"} <= on(torch.autograd.DeviceType.CPU)
+    assert not on(torch.autograd.DeviceType.CUDA) & {"tick.solve", "tick.replay", "solve.qp",
+                                                     "tick.controller", "ctrl.pre"}
+    _assert_bitwise(plain.result(True), traced.result(True))
+
+    snap = profiling.snapshot()
+    solve = [t for t in range(ticks) if ctrl.is_solve_tick(mpc, t)]
+    replayed = [t for t in range(ticks) if t not in solve]
+    for loop in (plain, traced):
+        entry = snap["loops"][loop.loop_id]
+        layers = sum(entry["nodes"][n] for n in ("tick.controller", "tick.plant", "tick.rows"))
+        assert layers == profiling.graph_nodes(loop.graph)["kernel"]
+        assert ("rbd.crba" in entry["nodes"]) == (plant == "fullorder")
+    assert not snap["loops"][plain.loop_id]["stamps"].any()
+    stamps = snap["loops"][traced.loop_id]["stamps"]
+    assert (stamps[replayed] > 0).all() and not stamps[solve].any()
+    assert (np.diff(stamps[replayed], axis=1) >= 0).all()
+    assert (stamps[replayed, -1] > stamps[replayed, 0]).all()
+    names = {n for n, *_ in snap["loops"][traced.loop_id]["layout"]}
+    assert names >= {"tick.controller", "ctrl.pre", "ctrl.post", "tick.plant", "tick.rows"}
+    cols = snap["spans"]["tick.solve"]
+    mine = cols["loop"] == traced.loop_id
+    assert mine.sum() == len(solve) and np.isfinite(cols["device_ms"][mine]).all()
+    cols = snap["spans"]["tick.replay"]
+    assert (cols["loop"] == traced.loop_id).sum() == len(replayed)
+
+
+@pytest.mark.cuda
+def test_cuda_solve_syncs_count_an_added_item(cuda_device, monkeypatch):
+    """``solve.syncs`` per traced solve tick reads one more when
+    ``srb.state_space`` reads a device value on the host."""
+    mpc, make = _loop_maker(cuda_device, "srb", "riccati", 40)
+
+    def syncs_per_tick():
+        before = profiling.snapshot()["counters"]
+        _under_profiler(make(), 40)
+        after = profiling.snapshot()["counters"]
+        ticks = after["solve.traced_ticks"] - before.get("solve.traced_ticks", 0)
+        assert ticks == 2
+        return (after["solve.syncs"] - before.get("solve.syncs", 0)) / ticks
+
+    base = syncs_per_tick()
+    inner = srb.state_space
+
+    def with_item(robot, yaw, pos_base_feet):
+        yaw.sum().item()
+        return inner(robot, yaw, pos_base_feet)
+
+    monkeypatch.setattr(srb, "state_space", with_item)
+    assert syncs_per_tick() == base + 1
+
+
+@pytest.mark.cuda
+def test_cuda_traced_capture_only_where_traced(cuda_device):
+    """``capture.traced`` counts one traced graph for a loop its caller
+    steps, none for a ``rollout()`` outside a profiler or a loop built after
+    ``set_enabled(False)``, and one for a ``rollout()`` under a profiler,
+    whose replays write its stamps; each loop captures one plain graph, and
+    both rollouts give the same answer bit for bit."""
+    ticks = 40
+    mpc, robot, gait, cmd, _, state = closed_loop_setup(cuda_device, B=64)
+    make = lambda: srb_env.RolloutLoop(robot, mpc, gait, cmd, ticks, init_state=state,
+                                       solver="riccati")
+    run = lambda: srb_env.rollout(robot, mpc, gait, cmd, ticks, init_state=state,
+                                  solver="riccati", return_full_carry=True)
+
+    def added():
+        return graph_loop.CAPTURES - plain0, \
+            profiling.snapshot()["counters"].get("capture.traced", 0) - traced0
+
+    plain0 = graph_loop.CAPTURES
+    traced0 = profiling.snapshot()["counters"].get("capture.traced", 0)
+    assert make().traced_graph is not None and added() == (1, 1)
+    untraced = run()
+    assert added() == (2, 1)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts):
+        traced = run()
+    assert added() == (3, 2)
+    snap = profiling.snapshot()["loops"]
+    assert snap[max(snap)]["stamps"].any()
+    _assert_bitwise(untraced, traced)
+    profiling.set_enabled(False)
+    try:
+        assert make().traced_graph is None and added() == (4, 2)
+    finally:
+        profiling.set_enabled(True)
