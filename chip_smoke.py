@@ -41,10 +41,18 @@ result):
    weak directions, and the worst of 4096 sits at the bench's f32 noise
    bar.  The two-sided cost difference and first-step fz are printed, not
    gated: equal-cost solutions differ by up to ~10% in one step's fz
-   (bench.py:467-473);
+   (bench.py:467-473).  5b, the condensing kernel (``csrc/condense.cu``,
+   which ``build_qp`` launches on the card) at B=4096, h=16 and h=10,
+   against the plain ``condense.condense`` + ``cones.mask_cost``: per
+   scenario max|dH| / max|H| and the same for g below 1e-5, H exactly
+   symmetric, masked rows and columns exactly identity with g exactly 0;
+   one NaN scenario leaves the others' H and g bitwise unchanged; then the
+   kernel alone against the plain version alone (CUDA events, medians),
+   and the bytes it writes against 3.35 TB/s;
 6. the condensed closed loop: the same scenarios as phase 3 with the
    default ``solver="admm_fast"`` (``pallas_split`` on the card); the
-   invert and iterate kernels must each launch once per solve tick;
+   condensing, invert and iterate kernels must each launch once per solve
+   tick;
 7. condensed times with CUDA events: one in-loop h=16 solve at B=4096 per
    backend, each kernel alone against its plain version (and the invert
    kernel against ``torch.linalg.inv``), the invert kernel alone without
@@ -81,7 +89,8 @@ result):
    default ``admm_fast`` (bench.py:757's configuration); both at B=4096
    scenarios jittered as tests/test_rbd.py:35-65 does, 1500 ticks.  The
    first 100 ticks must equal the same tick run eagerly bit for bit, each
-   solver kernel must launch once per solve tick (75), and the in-band
+   solver kernel (with ``admm_fast`` the condensing kernel too) must launch
+   once per solve tick (75), and the in-band
    share (tests/test_h16_config.py:99-126, tests/test_rbd.py:400-425) must
    reach min(0.99, the JAX package's share on the same scenarios - 0.01);
    then the period, the eager solve tick, one replayed tick, the graph's
@@ -90,7 +99,9 @@ result):
    terrain, ``substeps=2``, ``auto_reset`` and a 400-tick command ramp:
    graph against eager bit for bit, then 1500 ticks finite with no
    scenario diverged;
-12. the parity solvers (library calls and PyTorch ops, no hand kernel):
+12. the parity solvers (library calls and PyTorch ops; no hand kernel but
+   the condensing one, which ``build_qp`` launches for ``admm_ref``,
+   ``ipm`` and the yardstick):
    12a, phase 3's scenarios at their first solve tick (B=4096, h=16)
    through ``engine.solve_scenarios`` with ``"admm_ref"`` and ``"ipm"``
    and through the parity pipeline (``build_qp_ff`` + ``ipm.solve_batch``
@@ -138,7 +149,8 @@ result):
    the invert and iterate kernels, the first five B=1 solves against the
    plain version with phase 5's invariants, and the controller tick's p50
    and p99 (solve ticks and others) beside the reference's 20 ms and 1 ms,
-   not gated.  14b, ``examples/batch_viz.record_batch`` at B=4096 (mixed
+   not gated; the condensing kernel launches once a solve too.  14b,
+   ``examples/batch_viz.record_batch`` at B=4096 (mixed
    trotting10 / pacing10 / bounding8, a speed ramp), 38 frames of 40 ticks
    (cut from the example's 3 s): one graph capture, the per-gait share that
    never diverges and ends in a height band at or above the JAX package's
@@ -166,13 +178,15 @@ result):
    to phase 12a's bars against U*, the kernel backends to finite, swing
    forces exactly 0 and the worst cone row within 5x the cone share, their
    excess printed (above tests/test_riccati.py's h=16 bar at p99: a
-   finding); each kernel launched by its route.  15c, the MuJoCo example's
+   finding); each kernel launched by its route, and the condensing kernel
+   once by each route through ``build_qp`` (six).  15c, the MuJoCo example's
    oracle controller (``make_oracle_controller``) at B=1 on
    ``fullorder.physics_step`` through host numpy, 1000 ticks in phase
    11a's configuration held to its band, and in the example's defaults
    (phase 11b's) printed; no kernel launched; the oracle's tick times.
 
-The last lines are the kernel summary and the device record.  Imports
+The last lines are the kernel summary, the condensing kernel's, and the
+device record.  Imports
 torch, numpy and the port only.  ``--worker`` runs one process of phase 13.
 """
 from __future__ import annotations
@@ -422,7 +436,7 @@ def phase_closed_loop(dev, solver, phase):
     wall = time.perf_counter() - t0
     launches = kernel_launches()
     n_solves = N_TICKS // PERIOD
-    on_path = ("riccati_admm",) if solver == "riccati" else ("invert_spd", "iterate")
+    on_path = ("riccati_admm",) if solver == "riccati" else ("invert_spd", "iterate", "condense")
     for name, count in launches.items():
         check(count == (n_solves if name in on_path else 0),
               f"{solver} loop: kernel {name} launched {count} times, expected "
@@ -509,12 +523,11 @@ class CondensedProblem:
     Su: torch.Tensor      # (B,13h,n): the predicted states' response to U
 
 
-def condensed_problem(B, seed, dev, h=HORIZON) -> CondensedProblem:
-    """Trot-like condensed problems (h=16 unless given) from the port's
-    build_qp, made with numpy: jittered states near 1.2 m/s, a
-    forward-moving reference, the TROTTING16 stance table at a random phase
-    per scenario.  Also a warm
-    start in problem units: a converged plain solve perturbed by 5 N."""
+def trot_qp_inputs(B, seed, dev, h=HORIZON):
+    """Trot-like ``build_qp`` inputs (h=16 unless given), made with numpy:
+    jittered states near 1.2 m/s, a forward-moving reference, the
+    TROTTING16 stance table at a random phase per scenario.  Returns (mpc,
+    robot, x_t, yaw, feet, X_ref (B,h,13), table) and the generator."""
     rng = np.random.default_rng(seed)
     T = lambda a: torch.tensor(np.asarray(a), dtype=torch.float32, device=dev)
     mpc = default_mpc_params(h, device=dev)
@@ -537,8 +550,16 @@ def condensed_problem(B, seed, dev, h=HORIZON) -> CondensedProblem:
     X_ref[:, :, 12] = -9.81
     seg = (rng.integers(0, 16, B)[:, None] + np.arange(h)) % 16 < 8       # (B,h)
     table = np.stack([seg, ~seg, ~seg, seg], axis=-1).reshape(B, 4 * h)
-    x_t, yaw, feet, table = T(x_t), T(yaw), T(feet), T(table)
-    H, g, mv = refmpc.build_qp(robot, mpc, x_t, yaw, feet, T(X_ref), table)
+    return (mpc, robot, T(x_t), T(yaw), T(feet), T(X_ref), T(table)), rng
+
+
+def condensed_problem(B, seed, dev, h=HORIZON) -> CondensedProblem:
+    """Condensed problems from the port's ``build_qp`` on
+    :func:`trot_qp_inputs`; also a warm start in problem units: a converged
+    plain solve perturbed by 5 N."""
+    (mpc, robot, x_t, yaw, feet, X_ref, table), rng = trot_qp_inputs(B, seed, dev, h)
+    T = lambda a: torch.tensor(np.asarray(a), dtype=torch.float32, device=dev)
+    H, g, mv = refmpc.build_qp(robot, mpc, x_t, yaw, feet, X_ref, table)
     Ad, Bd = srb.discretize(*srb.state_space(robot, yaw, feet), mpc.dt_predict)
     Sx, Su = condense.rollout_matrices(Ad, Bd, h)
     U, lam = admm_fast.solve_batch(H, g, table, robot.fz_max, mpc,
@@ -647,6 +668,121 @@ def phase_condensed_vs_plain(dev):
                 check(invariants_ok(inv, fz_max),
                       f"h={h} B={B} {case} {backend}: kernel disagrees with the plain version")
     return worst
+
+
+#: The condensing kernel against the plain condensing (``condense.condense``
+#: + ``cones.mask_cost``), per scenario: max |dH| over max |H|, and the same
+#: for g, as the benchmark's ``qp_data`` reads an operand.  The kernel's
+#: host build reads at most 7.9e-7 against it at h = 10 and 16
+#: (tests/test_torch_condense.py's KERNEL_REL_TOL); the bar is a third of
+#: ``qp_data``'s 3e-5 limit (benchmark/workloads/srb-h16-trot-admm.json).
+CONDENSE_REL_BAR = 1e-5
+#: Scenario CONDENSE_FLIGHT of the check's batch has all four legs in flight
+#: at steps 2 and 3 of its horizon.
+CONDENSE_FLIGHT = 5
+
+
+def condense_operands(B, h, seed, dev):
+    """The condensing's operands (mpc, (Ad, Bd, x_t, X_ref, mv)) of
+    :func:`trot_qp_inputs`, discretised as ``build_qp`` does, with swing
+    legs masked and scenario CONDENSE_FLIGHT in flight for two steps."""
+    (mpc, robot, x_t, yaw, feet, X_ref, table), _ = trot_qp_inputs(B, seed, dev, h)
+    table[CONDENSE_FLIGHT % B, 8:16] = 0.0
+    Ad, Bd = srb.discretize(*srb.state_space(robot, yaw, feet), mpc.dt_predict)
+    return mpc, (Ad, Bd, x_t, X_ref, cones.variable_mask(table, mpc))
+
+
+def plain_condense(mpc, Ad, Bd, x_t, X_ref, mv):
+    """What ``build_qp`` computes off the card: the plain masked condensing."""
+    return cones.mask_cost(*condense.condense(Ad, Bd, x_t, X_ref, mpc), mv)
+
+
+def condense_report(H, g, H_ref, g_ref, mv) -> dict:
+    """The kernel's (H, g) against the plain version's: per scenario max
+    gap over max |ref| (worst over the batch), H exactly symmetric, the
+    masked rows and columns exactly identity, g exactly 0 there."""
+    def rel(a, b):
+        a, b = a.reshape(len(a), -1), b.reshape(len(b), -1)
+        return float(((a.double() - b.double()).abs().amax(-1)
+                      / b.double().abs().amax(-1).clamp(min=1e-30)).max())
+
+    swing = mv == 0
+    pinned = swing[:, :, None] | swing[:, None, :]
+    eye = torch.eye(H.shape[-1], dtype=H.dtype, device=H.device).expand_as(H)
+    return dict(H_rel=rel(H, H_ref), g_rel=rel(g, g_ref),
+                symmetric=bool(torch.equal(H, H.transpose(-1, -2))),
+                pinned_identity=bool(torch.equal(H[pinned], eye[pinned])),
+                pinned_g_zero=bool((g[swing] == 0).all()), masked=int(swing.sum()))
+
+
+def condense_ok(r: dict) -> bool:
+    return (r["H_rel"] < CONDENSE_REL_BAR and r["g_rel"] < CONDENSE_REL_BAR and r["symmetric"]
+            and r["pinned_identity"] and r["pinned_g_zero"])
+
+
+def condense_nan_isolation(mpc, ops) -> dict:
+    """The kernel with and without scenario NAN_ROW's x_t made NaN: how many
+    elements of the other scenarios' H and g differ."""
+    Ad, Bd, x_t, X_ref, mv = ops
+    row = NAN_ROW % len(x_t)
+    bad = x_t.clone()
+    bad[row] = float("nan")
+    H, g = admm_cuda.condense(Ad, Bd, x_t, X_ref, mv, mpc)
+    H2, g2 = admm_cuda.condense(Ad, Bd, bad, X_ref, mv, mpc)
+    torch.cuda.synchronize()
+    keep = torch.arange(len(x_t), device=x_t.device) != row
+    return {"others_differ": int((H[keep] != H2[keep]).sum() + (g[keep] != g2[keep]).sum()),
+            "poisoned_finite": bool(torch.isfinite(g2[row]).all())}
+
+
+def phase_condense(dev, card, libs):
+    """Phase 5b: the condensing kernel at B=4096, h=16 and h=10, against the
+    plain masked condensing; NaN isolation; then the kernel alone against
+    the plain version alone, and the bytes it writes against 3.35 TB/s."""
+    out = {}
+    for h in (HORIZON, 10):
+        occ = admm_cuda.condense_occupancy(libs["condense"].lib, h)
+        mpc, ops = condense_operands(B_MAIN, h, 19, dev)
+        before = dict(admm_cuda.LAUNCHES)
+        H, g = admm_cuda.condense(*ops, mpc)
+        torch.cuda.synchronize()
+        launched = {k: admm_cuda.LAUNCHES[k] - before[k] for k in before}
+        check(launched == {**{k: 0 for k in before}, "condense": 1},
+              f"phase 5b: h={h}: launches {launched}, expected condense 1")
+        r = condense_report(H, g, *plain_condense(mpc, *ops), ops[-1])
+        del H, g
+        nan = condense_nan_isolation(mpc, ops)
+        B, n = B_MAIN, 12 * h
+        plain_fn = lambda: plain_condense(mpc, *ops)
+        kernel_fn = lambda: admm_cuda.condense(*ops, mpc)
+        # In turns: plain, kernel, kernel, plain (the second of each is kept).
+        cuda_ms(plain_fn, reps=3)
+        cuda_ms(kernel_fn, reps=3)
+        t_kernel = cuda_ms(kernel_fn)
+        t_plain = cuda_ms(plain_fn, reps=5)
+        written = 4 * B * (n * n + n)
+        read = 4 * B * (13 * 13 + 13 * 12 + 13 + 13 * h + n)
+        bound, by = bound_ms(B * 2 * (h * (h + 1) // 2 * 12 * 12 * 13 + h * 13 * 13 * 12),
+                             written + read)
+        r.update(nan, ms=t_kernel, plain_ms=t_plain, bound_ms=bound, bound_by=by,
+                 written_bytes=written, write_only_ms=written / PEAK_BYTES * 1e3, **occ)
+        out[h] = r
+        print(f"phase 5b: condense kernel h={h} B={B}: H max|d|/max|H| {r['H_rel']:.3e}, g "
+              f"{r['g_rel']:.3e} against the plain condensing (bar {CONDENSE_REL_BAR:g} per "
+              f"scenario); H exactly symmetric {r['symmetric']}; {r['masked']} masked "
+              f"variables, their rows and columns exactly identity {r['pinned_identity']}, g "
+              f"exactly 0 {r['pinned_g_zero']}; NaN in scenario {NAN_ROW % B}: "
+              f"{nan['others_differ']} elements of the others' H and g differ; "
+              f"{occ['blocks_per_sm']} blocks (scenarios) resident per SM, "
+              f"{occ['smem_per_block']} B of shared memory per block", flush=True)
+        print(f"phase 5b: condense kernel alone h={h} B={B}: {t_kernel:.3f} ms, plain condense "
+              f"+ mask_cost {t_plain:.3f} ms ({t_plain / t_kernel:.1f}x); writes "
+              f"{written / 1e6:.1f} MB, {r['write_only_ms']:.3f} ms at 3.35 TB/s "
+              f"({100 * r['write_only_ms'] / t_kernel:.1f}% of it); bound {bound:.3f} ms "
+              f"({by}) [{card}]", flush=True)
+        check(condense_ok(r), f"phase 5b: h={h}: the condensing kernel outside the bars")
+        check(nan["others_differ"] == 0, f"phase 5b: h={h}: a NaN scenario moved the others")
+    return out
 
 
 def condensed_flops(n: int, m: int, iterations: int, ns_iters: int, ruiz_iters: int):
@@ -827,7 +963,7 @@ def phase_rollout(dev, card, solver):
     wall = time.perf_counter() - t0
     launches = kernel_launches()
     n_solves = N_TICKS // PERIOD
-    on_path = ("riccati_admm",) if solver == "riccati" else ("invert_spd", "iterate")
+    on_path = ("riccati_admm",) if solver == "riccati" else ("invert_spd", "iterate", "condense")
     for name, count in launches.items():
         check(count == (n_solves if name in on_path else 0),
               f"rollout {solver}: kernel {name} launched {count} times, expected "
@@ -1070,7 +1206,7 @@ def phase_fullorder_trot(dev, card, part: str):
     wall = time.perf_counter() - t0
     launches = kernel_launches()
     n_solves = FO_TICKS // PERIOD
-    on_path = ("riccati_admm",) if solver == "riccati" else ("invert_spd", "iterate")
+    on_path = ("riccati_admm",) if solver == "riccati" else ("invert_spd", "iterate", "condense")
     for name, count in launches.items():
         check(count == (n_solves if name in on_path else 0),
               f"phase {part}: kernel {name} launched {count} times, expected "
@@ -1982,7 +2118,7 @@ def phase_single_robot(dev, card):
     launches = kernel_launches()
     n_solves = SR_TICKS // PERIOD
     for name, count in launches.items():
-        want = n_solves if name in ("invert_spd", "iterate") else 0
+        want = n_solves if name in ("invert_spd", "iterate", "condense") else 0
         check(count == want, f"phase 14a: kernel {name} launched {count} times, expected {want}")
     ok, diverged, solve, other = r["ok"], r["diverged"], r["solve_tick_ms"], r["other_tick_ms"]
     print(f"phase 14a: make_torch_controller Aliengo h={p['horizon']} {p['gait']} {p['vx']} m/s "
@@ -2033,7 +2169,7 @@ def phase_batch_viz(dev, card):
     traced = profiling.snapshot()["counters"].get("capture.traced", 0) - traced0
     n_solves = BV_TICKS // PERIOD
     for name, count in launches.items():
-        want = n_solves if name in ("invert_spd", "iterate") else 0
+        want = n_solves if name in ("invert_spd", "iterate", "condense") else 0
         check(count == want, f"phase 14b: kernel {name} launched {count} times, expected {want}")
     check(captures == 1, f"phase 14b: {captures} graph captures, expected one")
     check(traced == 0, f"phase 14b: {traced} traced graph captures outside a profiler")
@@ -2406,7 +2542,10 @@ def phase_oracle_routes(dev, card, mpc, robot, inputs, qp):
     U.update({name: fn() for name, fn in parity_routes(mpc, robot, inputs).items()})
     torch.cuda.synchronize()
     launches = kernel_launches()
-    want = {"riccati_admm": 1, "invert_spd": 2, "iterate": 2, "iterate_fused": 1, "solve_full": 1}
+    # build_qp condenses on the card for the three condensed kernel routes,
+    # the yardstick, admm_ref and ipm; the parity route condenses in float64.
+    want = {"riccati_admm": 1, "invert_spd": 2, "iterate": 2, "iterate_fused": 1, "solve_full": 1,
+            "condense": 6}
     check(launches == want, f"phase 15b: kernel launches {launches}, expected {want}")
     # The kernel routes' plain versions on the same inputs (no launch), to
     # tell the kernels' share of a gap to the optimum from the algorithm's.
@@ -2588,11 +2727,15 @@ def main() -> int:
               f"of dynamic shared memory per block, {c['workspace_floats']} workspace floats per "
               f"scenario; ptxas: {ptxas}", flush=True)
 
+    ptxas = entry_report(libs["condense"].log, "condense_kernel")
+    print(f"phase 1: condense_kernel: ptxas: {ptxas}", flush=True)
+
     max_err = phase_kernel_vs_plain(dev)
     ric_launches, loop_state = phase_closed_loop(dev, "riccati", 3)
     ric_times = phase_times(dev, card, loop_state)
     del loop_state
     cond_err = phase_condensed_vs_plain(dev)
+    condensing = phase_condense(dev, card, libs)
     cond_launches, loop_state = phase_closed_loop(dev, "admm_fast", 6)
     cond_times, backend_launches = phase_condensed_times(dev, card, loop_state)
     del loop_state
@@ -2684,6 +2827,11 @@ def main() -> int:
     print(json.dumps({"surfaces": surfaces}))
     print(json.dumps({"oracle": oracle}))
     print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"condense": {
+        "name": "condense", "route": "cuda", "source": "pympc_quadruped_tpu_torch/csrc/condense.cu",
+        "replaces": None, "launches_run_ticks": cond_launches["condense"],
+        "launches": rollout_launches["condense"], "launches_oracle": oracle_launches["condense"],
+        "per_horizon": condensing}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

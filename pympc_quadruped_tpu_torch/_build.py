@@ -47,6 +47,9 @@ SIGNATURES = {
     "admm_fused_launch": ([_P] * 14 + [_I] * 4 + [_F] * 2 + [_I, _P], _I),
     "admm_full_launch": ([_P] * 11 + [_I] * 4 + [_F] * 2 + [_I] * 2 + [_F] * 2 + [_P], _I),
     "admm_fused_config": ([_I] * 3 + [_P], _I),
+    "condense_launch": ([_P] * 9 + [_I] * 2 + [_P], _I),
+    "condense_max_horizon": ([], _I),
+    "condense_occupancy": ([_I, _P], _I),
     "stamp_launch": ([_P, _I, _P, _I, _P, _I, _I, _I, _P], _I),
 }
 

@@ -23,7 +23,7 @@ from pympc_quadruped_tpu_torch.models.mpc import NUM_STATE, MpcParams
 from pympc_quadruped_tpu_torch.models.robots import RobotParams
 from pympc_quadruped_tpu_torch.ops import condense, srb
 from pympc_quadruped_tpu_torch.ops.kin import KinState
-from pympc_quadruped_tpu_torch.ops.qp import admm, cones, ipm
+from pympc_quadruped_tpu_torch.ops.qp import admm, admm_cuda, cones, ipm
 from pympc_quadruped_tpu_torch.tree import tree_map
 
 
@@ -212,13 +212,20 @@ def build_qp(
     """(Ac,Bc) -> (Ad,Bd) -> condensed (H, g) with swing-leg masking
     applied, batched; ``robot`` carries the scenario axis.
 
+    On float32 CUDA operands at a horizon the kernel plans for, one launch
+    of the condensing kernel (``admm_cuda.condense``) builds the masked
+    (H, g); otherwise (the CPU, a longer horizon) the plain
+    ``condense.condense`` and ``cones.mask_cost``.
+
     Returns H (B,12h,12h), g (B,12h) and the stance variable mask mv (B,12h).
     """
     Ac, Bc = srb.state_space(robot, yaw, pos_base_feet)
     Ad, Bd = srb.discretize(Ac, Bc, mpc.dt_predict)
-    H, g = condense.condense(Ad, Bd, x_t, X_ref, mpc)
     mv = cones.variable_mask(gait_table, mpc)
-    H, g = cones.mask_cost(H, g, mv)
+    if admm_cuda.condenses_on_card(x_t, mpc, Ad, Bd, X_ref, mv):
+        H, g = admm_cuda.condense(Ad, Bd, x_t, X_ref, mv, mpc)
+    else:
+        H, g = cones.mask_cost(*condense.condense(Ad, Bd, x_t, X_ref, mpc), mv)
     return H, g, mv
 
 

@@ -1,6 +1,7 @@
-"""Wrapper of the hand-written CUDA condensed-ADMM kernels (``csrc/admm.cu``,
-``csrc/admm_iterate.cu`` and ``csrc/admm_fused.cu``, arithmetic in
-``csrc/admm.cuh``).
+"""Wrapper of the hand-written CUDA condensed-path kernels: the condensed-ADMM
+kernels (``csrc/admm.cu``, ``csrc/admm_iterate.cu`` and ``csrc/admm_fused.cu``,
+arithmetic in ``csrc/admm.cuh``) and the condensing kernel that builds their
+QP (``csrc/condense.cu``, arithmetic in ``csrc/condense.cuh``).
 
 Each entry has the signature and returns of its JAX counterpart in
 ``pympc_quadruped_tpu/ops/qp/admm_pallas.py``, without the Pallas tile
@@ -15,6 +16,7 @@ entry                         kernel               replaces (admm_pallas.py)
 :func:`invert_iterate`        invert, then iterate the split pipeline (:317)
 :func:`iterate_fused`         admm_fused_kernel    ``_fused_kernel`` (:374)
 :func:`solve_full`            admm_full_kernel     ``_full_kernel`` (:417)
+:func:`condense`              condense_kernel      none: plain XLA in JAX
 ============================  ===================  ==============================
 
 Operands are batch-major and contiguous float32 on one device; a bad one
@@ -31,11 +33,13 @@ import ctypes
 import torch
 
 from pympc_quadruped_tpu_torch import _build
-from pympc_quadruped_tpu_torch.ops.qp import admm_fast
+from pympc_quadruped_tpu_torch.models.mpc import NUM_INPUT, NUM_STATE, MpcParams
+from pympc_quadruped_tpu_torch.ops import condense as plain_condense
+from pympc_quadruped_tpu_torch.ops.qp import admm_fast, cones
 from pympc_quadruped_tpu_torch.ops.qp.admm_fast import AdmmKktOperands, AdmmOperands
 
 #: CUDA launches of each kernel since import (or since a caller reset them).
-LAUNCHES = {"invert_spd": 0, "iterate": 0, "iterate_fused": 0, "solve_full": 0}
+LAUNCHES = {"invert_spd": 0, "iterate": 0, "iterate_fused": 0, "solve_full": 0, "condense": 0}
 
 # Kernel ids of admm_workspace_floats (csrc/admm.cuh, enum Kernel).
 _INVERT, _ITERATE, _FUSED, _FULL = range(4)
@@ -290,3 +294,57 @@ def solve_full(H, g, srow, l, u, P0: torch.Tensor, cfg: admm_fast.AdmmFastConfig
          int(cfg.newton_schulz_iters), int(cfg.ruiz_iters), float(cfg.rho),
          float(cfg.rho_eq), stream)
     return U, lam
+
+
+def condense_occupancy(lib, h: int) -> dict:
+    """What the card keeps resident of the condensing kernel at horizon
+    ``h``: blocks (one scenario each) per SM and dynamic shared memory bytes
+    per block."""
+    out = (ctypes.c_int * 2)()
+    rc = lib.condense_occupancy(h, ctypes.addressof(out))
+    if rc != 0:
+        raise RuntimeError(f"condense_kernel occupancy query failed: CUDA error {rc}")
+    return {"blocks_per_sm": out[0], "smem_per_block": out[1]}
+
+
+def condenses_on_card(x_t: torch.Tensor, mpc: MpcParams, *operands: torch.Tensor) -> bool:
+    """Whether :func:`condense` launches its kernel for these operands:
+    float32 on a CUDA device, at a horizon within the kernel's shared-memory
+    plan (``condense_max_horizon``, csrc/condense.cuh).  ``build_qp`` keeps
+    the plain condensing otherwise."""
+    if x_t.device.type != "cuda" or any(t.dtype != torch.float32 for t in (x_t, *operands)):
+        return False
+    return mpc.horizon <= _build.load("condense").lib.condense_max_horizon()
+
+
+def condense(Ad: torch.Tensor, Bd: torch.Tensor, x_t: torch.Tensor, X_ref: torch.Tensor,
+             mv: torch.Tensor, mpc: MpcParams, lib=None):
+    """The masked condensed cost of ``condense_kernel``: H (B,12h,12h) and g
+    (B,12h), what ``cones.mask_cost(*condense.condense(Ad, Bd, x_t, X_ref,
+    mpc), mv)`` returns, to f32 rounding (H exactly symmetric, masked rows
+    and columns exactly identity with zero gradient).  Ad (B,13,13), Bd
+    (B,13,12), x_t (B,13), X_ref (B,13h) or (B,h,13), mv (B,12h)."""
+    target = _target(x_t, lib, "condense")
+    if target is None:
+        return cones.mask_cost(*plain_condense.condense(Ad, Bd, x_t, X_ref, mpc), mv)
+    lib, stream = target
+    B, h = x_t.shape[0], mpc.horizon
+    n = NUM_INPUT * h
+    if h > lib.condense_max_horizon():
+        raise ValueError(f"h={h}: the condensing kernel plans at most "
+                         f"h={lib.condense_max_horizon()}")
+    dev = x_t.device
+    X_ref = X_ref.reshape(B, NUM_STATE * h)
+    for name, t, shape in (("Ad", Ad, (B, NUM_STATE, NUM_STATE)),
+                           ("Bd", Bd, (B, NUM_STATE, NUM_INPUT)), ("x_t", x_t, (B, NUM_STATE)),
+                           ("X_ref", X_ref, (B, NUM_STATE * h)), ("mv", mv, (B, n)),
+                           ("q_diag", mpc.q_diag, (NUM_STATE,)),
+                           ("r_diag", mpc.r_diag, (NUM_INPUT,))):
+        _check(name, t, shape, dev)
+    H = torch.empty((B, n, n), dtype=torch.float32, device=dev)
+    g = torch.empty((B, n), dtype=torch.float32, device=dev)
+    _check_aligned("H", H)
+    _run(x_t, "condense", lib.condense_launch,
+         *(t.data_ptr() for t in (Ad, Bd, x_t, X_ref, mv, mpc.q_diag, mpc.r_diag, H, g)),
+         B, h, stream)
+    return H, g

@@ -24,14 +24,14 @@ from pympc_quadruped_tpu.ops.qp import cones as jcones
 from pympc_quadruped_tpu.ops.qp import riccati as jriccati
 from pympc_quadruped_tpu.utils import observability as jobs
 
-from pympc_quadruped_tpu_torch import convert, tree
+from pympc_quadruped_tpu_torch import _build, convert, tree
 from pympc_quadruped_tpu_torch.control import controller, refmpc
 from pympc_quadruped_tpu_torch.control.refmpc import MpcCarry
 from pympc_quadruped_tpu_torch.control.swing import SwingCarry
 from pympc_quadruped_tpu_torch.models import Command, Gaits, aliengo, default_mpc_params
 from pympc_quadruped_tpu_torch.models.robots import a1
-from pympc_quadruped_tpu_torch.ops import condense
-from pympc_quadruped_tpu_torch.ops.qp import cones, riccati
+from pympc_quadruped_tpu_torch.ops import condense, srb
+from pympc_quadruped_tpu_torch.ops.qp import admm_cuda, cones, riccati
 from pympc_quadruped_tpu_torch.utils import observability
 
 torch.set_num_threads(1)
@@ -179,6 +179,116 @@ def test_qp_residuals_match_jax():
                                       torch.tensor(U), default_mpc_params(H, device="cpu"))
     for key in ref:
         np.testing.assert_allclose(port[key].numpy(), np.asarray(ref[key]), rtol=1e-5, atol=1e-4)
+
+
+# The condensing kernel's arithmetic (csrc/condense.cuh), through its host
+# build (csrc/condense_host.cpp) and admm_cuda.condense's ``lib`` argument.
+
+#: Per scenario max |d| over max |ref|, as the benchmark's ``qp_data`` reads
+#: an operand: a third of its 3e-5 limit.  The host build reads at most
+#: 7.9e-7 against the plain condensing and 1.1e-6 against JAX's build_qp
+#: (h = 10 and 16, B up to 16, four seeds): sums in another order, H's
+#: running Toeplitz sums and the free trajectory by steps x <- Ad x.
+KERNEL_REL_TOL = 1e-5
+
+
+@pytest.fixture(scope="module")
+def condense_host(tmp_path_factory):
+    """csrc/condense.cuh compiled for the CPU (csrc/condense_host.cpp)."""
+    return _build.build_host("condense_host.cpp", tmp_path_factory.mktemp("condense_host"))
+
+
+def with_flight(arrays):
+    """``qp_inputs`` with scenario 0's four legs in flight at steps 2 and 3."""
+    table = arrays[4].copy()
+    table[0, 8:16] = 0.0
+    return arrays[:4] + (table,)
+
+
+def kernel_operands(arrays, h):
+    """(mpc, Ad, Bd, x_t, X_ref (B,h,13), mv) as ``build_qp`` forms them."""
+    x_t, yaw, feet, X_ref, table = map(torch.tensor, arrays)
+    robot = tree.tile(aliengo(device="cpu"), x_t.shape[0])
+    mpc = default_mpc_params(h, device="cpu")
+    Ad, Bd = srb.discretize(*srb.state_space(robot, yaw, feet), mpc.dt_predict)
+    return mpc, Ad, Bd, x_t, X_ref, cones.variable_mask(table, mpc)
+
+
+def per_scenario_rel(got, ref) -> float:
+    got, ref = (np.array(a, dtype=np.float64).reshape(a.shape[0], -1) for a in (got, ref))
+    return float((np.abs(got - ref).max(-1) / np.abs(ref).max(-1)).max())
+
+
+def assert_pinned(H, g, mv):
+    """H exactly symmetric; masked rows and columns exactly identity, g
+    exactly 0 there."""
+    assert torch.equal(H, H.transpose(-1, -2))
+    eye = torch.eye(H.shape[-1])
+    for b in range(H.shape[0]):
+        swing = mv[b] == 0
+        assert torch.equal(H[b][swing], eye[swing])
+        assert torch.equal(H[b][:, swing], eye[:, swing])
+        assert torch.equal(g[b][swing], torch.zeros(int(swing.sum())))
+
+
+@pytest.mark.parametrize("layout", ["flat", "steps"])
+@pytest.mark.parametrize("Bn", [1, 4])
+@pytest.mark.parametrize("h", [10, H])
+def test_condense_kernel_code_matches_plain(h, Bn, layout, condense_host):
+    """The kernel's per-scenario code against ``cones.mask_cost(
+    *condense.condense(...), mv)``, X_ref as (B,13h) or (B,h,13), swing legs
+    masked and one scenario in flight: H and g within KERNEL_REL_TOL per
+    scenario, H exactly symmetric, the masked variables pinned exactly."""
+    mpc, Ad, Bd, x_t, X_ref, mv = kernel_operands(with_flight(qp_inputs(Bn, h, 7 + Bn)), h)
+    X_in = X_ref.reshape(Bn, -1) if layout == "flat" else X_ref
+    Hk, gk = admm_cuda.condense(Ad, Bd, x_t, X_in, mv, mpc, lib=condense_host)
+    Hp, gp = cones.mask_cost(*condense.condense(Ad, Bd, x_t, X_ref, mpc), mv)
+    assert per_scenario_rel(Hk, Hp) < KERNEL_REL_TOL
+    assert per_scenario_rel(gk, gp) < KERNEL_REL_TOL
+    assert_pinned(Hk, gk, mv)
+    assert int((mv == 0).sum()) > 0 and admm_cuda.LAUNCHES["condense"] == 0
+
+
+@pytest.mark.parametrize("h", [10, H])
+def test_condense_kernel_code_matches_jax(h, condense_host):
+    """The kernel's per-scenario code against the JAX package's
+    ``build_qp`` on the same scenarios (one in flight), at KERNEL_REL_TOL."""
+    arrays = with_flight(qp_inputs(B, h, 9))
+    Hj, gj, mvj = jax_build_qp(arrays, h)
+    mpc, Ad, Bd, x_t, X_ref, mv = kernel_operands(arrays, h)
+    Hk, gk = admm_cuda.condense(Ad, Bd, x_t, X_ref, mv, mpc, lib=condense_host)
+    np.testing.assert_array_equal(mv.numpy(), np.asarray(mvj))
+    assert per_scenario_rel(Hk, Hj) < KERNEL_REL_TOL
+    assert per_scenario_rel(gk, gj) < KERNEL_REL_TOL
+    assert_pinned(Hk, gk, mv)
+
+
+def test_condense_kernel_refuses_a_horizon_beyond_its_plan(condense_host):
+    """Past ``condense_max_horizon`` the wrapper raises before a launch and
+    the launcher itself refuses."""
+    h = condense_host.condense_max_horizon() + 1
+    mpc, Ad, Bd, x_t, X_ref, mv = kernel_operands(qp_inputs(1, h, 3), h)
+    with pytest.raises(ValueError, match="plans at most"):
+        admm_cuda.condense(Ad, Bd, x_t, X_ref, mv, mpc, lib=condense_host)
+    n = 12 * h
+    H_out, g_out = torch.zeros(1, n, n), torch.zeros(1, n)
+    rc = condense_host.condense_launch(
+        *(t.data_ptr() for t in (Ad, Bd, x_t, X_ref, mv, mpc.q_diag, mpc.r_diag, H_out, g_out)),
+        1, h, None)
+    assert rc != 0 and not H_out.any()
+
+
+def test_build_qp_condenses_plainly_off_the_card():
+    """On the CPU ``build_qp`` keeps the plain condensing: no kernel, and
+    its (H, g) bit for bit ``mask_cost(*condense(...), mv)``."""
+    arrays = with_flight(qp_inputs(B, H, 4))
+    mpc, Ad, Bd, x_t, X_ref, mv = kernel_operands(arrays, H)
+    assert not admm_cuda.condenses_on_card(x_t, mpc, Ad, Bd, X_ref, mv)
+    before = dict(admm_cuda.LAUNCHES)
+    Hb, gb, mvb = port_build_qp(arrays, H)
+    Hp, gp = cones.mask_cost(*condense.condense(Ad, Bd, x_t, X_ref, mpc), mv)
+    assert torch.equal(Hb, Hp) and torch.equal(gb, gp) and torch.equal(mvb, mv)
+    assert admm_cuda.LAUNCHES == before
 
 
 CONSTRUCTORS = {  # name -> (constructor, positional arguments)

@@ -13,10 +13,12 @@ import pytest
 import torch
 
 from chip_smoke import (B_MAIN, CONE_SHARE, INV_RATIO_BAR, NAN_BACKENDS, PARITY_COST_BAR,
-                        PARITY_GRF_BAR, closed_loop_setup, condensed_problem, cone_violation,
+                        PARITY_GRF_BAR, closed_loop_setup, condense_nan_isolation, condense_ok,
+                        condense_operands, condense_report, condensed_problem, cone_violation,
                         engine_inputs, f64_cost, fullorder_graph_and_eager, fullorder_setup,
                         invariants_ok, inverse_residual, nan_isolation, parity_routes,
-                        phase_oracle_certificate, qp_invariants, random_problem)
+                        phase_oracle_certificate, plain_condense, qp_invariants, random_problem,
+                        trot_qp_inputs)
 from pympc_quadruped_tpu_torch import tree
 from pympc_quadruped_tpu_torch.control import controller as ctrl
 from pympc_quadruped_tpu_torch.control import refmpc
@@ -73,8 +75,9 @@ def test_cuda_kernel_matches_plain_short_horizons(cuda_device, h, B):
 @pytest.mark.cuda
 def test_cuda_closed_loop_goes_through_the_kernel(cuda_device):
     """40 ticks of the h=16 trot at B=64 on the card with the Riccati
-    solver: one launch per solve tick, finite torques, forces on the stance
-    legs only."""
+    solver: one launch per solve tick and none of any other kernel (the
+    condensing kernel included), finite torques, forces on the stance legs
+    only."""
     _check_short_loop(cuda_device, "riccati", {"riccati_admm": 2})
 
 
@@ -93,9 +96,9 @@ def _check_short_loop(dev, solver, expected):
 
 @pytest.mark.cuda
 def test_cuda_condensed_closed_loop_goes_through_the_kernels(cuda_device):
-    """40 ticks with the default solver: the invert and iterate kernels
-    launch once per solve tick each, nothing else launches."""
-    _check_short_loop(cuda_device, "admm_fast", {"invert_spd": 2, "iterate": 2})
+    """40 ticks with the default solver: the condensing, invert and iterate
+    kernels launch once per solve tick each, nothing else launches."""
+    _check_short_loop(cuda_device, "admm_fast", {"invert_spd": 2, "iterate": 2, "condense": 2})
 
 
 @pytest.mark.cuda
@@ -129,6 +132,44 @@ def test_cuda_condensed_kernels_match_plain(cuda_device, B, h):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("h", [16, 10])
+def test_cuda_condense_kernel_matches_plain(cuda_device, h):
+    """chip_smoke.py phase 5b at B=4096: the condensing kernel's masked (H,
+    g) against the plain ``condense.condense`` + ``cones.mask_cost`` on the
+    same CUDA tensors, per scenario max gap over max |ref| below
+    CONDENSE_REL_BAR, H exactly symmetric, masked rows and columns exactly
+    identity with g exactly 0 (swing legs, and one scenario in flight); and
+    ``build_qp`` launches the kernel once a call, nothing else, and returns
+    the kernel's operands bit for bit."""
+    mpc, ops = condense_operands(B_MAIN, h, 19, cuda_device)
+    H, g = admm_cuda.condense(*ops, mpc)
+    r = condense_report(H, g, *plain_condense(mpc, *ops), ops[-1])
+    assert condense_ok(r) and r["masked"] > 0, r
+    del H, g
+    (mpc, robot, x_t, yaw, feet, X_ref, table), _ = trot_qp_inputs(B_MAIN, 23, cuda_device, h)
+    for _ in range(2):
+        before = dict(admm_cuda.LAUNCHES)
+        H, g, mv = refmpc.build_qp(robot, mpc, x_t, yaw, feet, X_ref, table)
+        torch.cuda.synchronize()
+        assert {k: admm_cuda.LAUNCHES[k] - before[k] for k in before} == {
+            "invert_spd": 0, "iterate": 0, "iterate_fused": 0, "solve_full": 0, "condense": 1}
+    Ad, Bd = srb.discretize(*srb.state_space(robot, yaw, feet), mpc.dt_predict)
+    H_k, g_k = admm_cuda.condense(Ad, Bd, x_t, X_ref, mv, mpc)
+    assert torch.equal(H, H_k) and torch.equal(g, g_k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h", [16, 10])
+def test_cuda_condense_nan_scenario_leaves_the_others_bitwise(cuda_device, h):
+    """One NaN scenario (its x_t) of a B=4096 batch through the condensing
+    kernel leaves every other scenario's H and g bit for bit the same, and
+    its own g non-finite."""
+    mpc, ops = condense_operands(B_MAIN, h, 29, cuda_device)
+    r = condense_nan_isolation(mpc, ops)
+    assert r["others_differ"] == 0 and not r["poisoned_finite"], r
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("B,h", [(256, 16), (130, 16), (256, 10)])
 def test_cuda_fused_kernel_matches_split_bitwise(cuda_device, B, h):
     """The fused kernel runs the invert kernel's inverse and sweeps on Kinv
@@ -148,7 +189,7 @@ def test_cuda_fused_kernel_matches_split_bitwise(cuda_device, B, h):
         split = admm_cuda.invert_iterate(kkt, P0, cfg, init)
         torch.cuda.synchronize()
         assert {k: admm_cuda.LAUNCHES[k] - before[k] for k in before} == {
-            "invert_spd": 1, "iterate": 1, "iterate_fused": 1, "solve_full": 0}
+            "invert_spd": 1, "iterate": 1, "iterate_fused": 1, "solve_full": 0, "condense": 0}
         assert bool(torch.isfinite(fused[0]).all() and torch.isfinite(fused[1]).all())
         for a, b in zip(fused, split):
             assert torch.equal(a, b)
@@ -172,7 +213,7 @@ def test_cuda_graph_rollout_equals_eager_run_ticks(cuda_device, solver):
                                                   init_state=state, solver=solver)
     torch.cuda.synchronize()
     after = {"riccati_admm": riccati_cuda.LAUNCHES, **admm_cuda.LAUNCHES}
-    on_path = ("riccati_admm",) if solver == "riccati" else ("invert_spd", "iterate")
+    on_path = ("riccati_admm",) if solver == "riccati" else ("invert_spd", "iterate", "condense")
     assert {k: after[k] - before[k] for k in after} == {k: 3 * (k in on_path) for k in after}
     _assert_bitwise((state_g, carry_g), (state_e, carry_e))
     assert not bool(metrics["diverged"].any())
@@ -233,7 +274,7 @@ def test_cuda_fullorder_graph_equals_eager(cuda_device, part, solver):
                                                    state0=state0, solver=solver)
     torch.cuda.synchronize()
     after = {"riccati_admm": riccati_cuda.LAUNCHES, **admm_cuda.LAUNCHES}
-    on_path = ("riccati_admm",) if solver == "riccati" else ("invert_spd", "iterate")
+    on_path = ("riccati_admm",) if solver == "riccati" else ("invert_spd", "iterate", "condense")
     assert {k: after[k] - before[k] for k in after} == {k: 10 * (k in on_path) for k in after}
     _assert_bitwise(g, e)
     for k in m_g:
