@@ -12,7 +12,9 @@ reads the port run with TF32 products allowed, and with ``--fault-seeds``
 the port with each fault of :data:`FAULTS` planted.  ``--rows`` and
 ``--periods`` widen the check's sample; a line whose answers failed lists
 them under ``failures``.  The benchmark's own runs never run this.  All
-seeds share one process, so the kernels build and load once.
+seeds share one process, so the kernels build and load once; a sweep
+cell's share one set of rank processes (``--ranks``, ``--batch`` and
+``--chunk-ticks`` shrink it for a rehearsal on the CPU).
 """
 import argparse
 import dataclasses
@@ -55,15 +57,81 @@ def _state_nan(out):
     return (state,) + tuple(out[1:]) if isinstance(out, tuple) else state
 
 
-#: Faults planted in the port: (where, what it does to that call's result).
-#: "solver" is the solver's entry that the controller calls; "plant" is the
-#: environment's physics step, inside the captured tick.
+def _on_result(fault):
+    """A fault applied to the result of each call of the function it replaces."""
+    return lambda inner: lambda *a, **k: fault(inner(*a, **k))
+
+
+def _frozen(inner):
+    """The plant's step returns the state it was given (the SRB step's third
+    argument; the articulated step's fourth, with the contact forces)."""
+    def step(*a, **k):
+        out = inner(*a, **k)
+        if isinstance(out, tuple):
+            return (dataclasses.replace(a[3]),) + tuple(out[1:])
+        return dataclasses.replace(a[2])
+    return step
+
+
+def _drop_rank(inner):
+    """Rank 1's contribution to every reduction left out (zeros in its place)."""
+    def reduce(tree, mesh, op):
+        from pympc_quadruped_tpu_torch.tree import tree_map
+
+        if mesh.rank == 1:
+            tree = tree_map(torch.zeros_like, tree)
+        return inner(tree, mesh, op)
+    return reduce
+
+
+def _no_exchange(inner):
+    """The exchange between ranks left out: each rank keeps its own values."""
+    return lambda tree, mesh, op: tree
+
+
+def _reset_carry(inner):
+    """A chunk's loop starts from the initial carry in place of the one the
+    previous chunk handed over."""
+    class Loop(inner):
+        def __init__(self, *a, **k):
+            k["carry_in"] = None
+            super().__init__(*a, **k)
+    return Loop
+
+
+def _stale_save(inner):
+    """Each save after the first writes the state handed to the one before."""
+    held = {}
+
+    def save(self, step, state):
+        from pympc_quadruped_tpu_torch.tree import tree_map
+
+        prev = held.get(id(self))
+        held[id(self)] = tree_map(torch.clone, state)
+        return inner(self, step, state if prev is None else prev)
+    return save
+
+
+#: Faults planted in the port: (where, a function of the replaced function
+#: or class that returns its faulty stand-in).  "solver" is the solver's
+#: entry that the controller calls; "plant" is the environment's physics
+#: step, inside the captured tick; a sweep's faults sit in the reductions
+#: ("mesh": ``parallel/mesh._all_reduce``), the chunk's loop ("loop":
+#: ``srb_env.RolloutLoop``) and the checkpoint ("checkpoint":
+#: ``SweepCheckpointer.save``).
 FAULTS = {
-    "altered": ("solver", _altered),      # the forces scaled by 1.2
-    "half": ("solver", _half),            # half of the batch left unsolved
-    "nan_rows": ("solver", _solver_nan),  # every 8th robot's solve not finite
-    "nan_state": ("plant", _state_nan),   # every 8th robot's step not finite
+    "altered": ("solver", _on_result(_altered)),      # the forces scaled by 1.2
+    "half": ("solver", _on_result(_half)),            # half of the batch left unsolved
+    "nan_rows": ("solver", _on_result(_solver_nan)),  # every 8th robot's solve not finite
+    "nan_state": ("plant", _on_result(_state_nan)),   # every 8th robot's step not finite
+    "frozen": ("plant", _frozen),                     # the step returns its state unchanged
+    "drop_rank": ("mesh", _drop_rank),                # one rank's summary left out
+    "no_exchange": ("mesh", _no_exchange),            # the reductions exchange nothing
+    "reset_carry": ("loop", _reset_carry),            # a chunk starts from the initial carry
+    "stale_save": ("checkpoint", _stale_save),        # a save writes the previous state
 }
+#: Where a fault sits only in a sweep's path.
+SWEEP_ONLY = ("mesh", "loop", "checkpoint")
 
 
 def plant(cfg: dict, name: str):
@@ -71,14 +139,18 @@ def plant(cfg: dict, name: str):
     call; returns the function that takes it out again."""
     from pympc_quadruped_tpu_torch.env import fullorder, srb_env
     from pympc_quadruped_tpu_torch.ops.qp import admm_fast, riccati
+    from pympc_quadruped_tpu_torch.parallel import checkpoint, mesh
 
     where, fault = FAULTS[name]
-    if where == "solver":
-        module, attr = {"admm_fast": admm_fast, "riccati": riccati}[cfg["solver"]], "solve_batch"
-    else:
-        module, attr = {"srb": srb_env, "fullorder": fullorder}[cfg["plant"]], "physics_step"
+    module, attr = {
+        "solver": ({"admm_fast": admm_fast, "riccati": riccati}[cfg["solver"]], "solve_batch"),
+        "plant": ({"srb": srb_env, "fullorder": fullorder}[cfg["plant"]], "physics_step"),
+        "mesh": (mesh, "_all_reduce"),
+        "loop": (srb_env, "RolloutLoop"),
+        "checkpoint": (checkpoint.SweepCheckpointer, "save"),
+    }[where]
     inner = getattr(module, attr)
-    setattr(module, attr, lambda *a, **k: fault(inner(*a, **k)))
+    setattr(module, attr, fault(inner))
     return lambda: setattr(module, attr, inner)
 
 
@@ -101,6 +173,34 @@ def failures(rec: dict, limits: dict, numbers: dict) -> list:
     return out
 
 
+def calibrate_sweep(args, spec, cfg, mix, seeds, controls, tf32, faults, emit) -> int:
+    """The readings of a sweep cell, every run in one set of rank
+    processes (the kernels build and load once): the port on ``seeds``,
+    with the control (the reference in TF32) on ``controls``, the port with
+    TF32 products allowed on ``tf32``, and each fault on ``faults``."""
+    from benchmark.harness import sweep
+
+    runs = [{"seed": s, "control": s in controls} for s in sorted(set(seeds) | controls)]
+    runs += [{"seed": s, "tf32": True} for s in sorted(tf32)]
+    runs += [{"seed": s, "fault": name} for s in sorted(faults) for name in FAULTS]
+    sizes = {k: v for k, v in (("batch", args.batch), ("ranks", args.ranks),
+                               ("chunk_ticks", args.chunk_ticks)) if v}
+    for run, rec in zip(runs, sweep.run(spec, cfg, mix, runs, args.seconds, False, args.device,
+                                        time.time(), **sizes)):
+        kind = (f"fault_{run['fault']}" if run.get("fault")
+                else "program_tf32" if run.get("tf32") else "program")
+        row = {"cell": args.workload, "seed": run["seed"], "kind": kind,
+               "numbers": rec["numbers"], "correct": rec["correct"],
+               "attempted": rec["attempted"], "failed": rec["failed"],
+               "periods": len(rec["period_ms"]), "chunks": rec["chunks"],
+               "per_rank": [r["numbers"] for r in rec["per_rank"]]}
+        emit(row)
+        if "control" in rec:
+            emit({"cell": args.workload, "seed": run["seed"], "kind": "control_tf32",
+                  "numbers": rec["control"]})
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--workload", required=True)
@@ -113,13 +213,15 @@ def main(argv=None) -> int:
     ap.add_argument("--batch", type=int, default=None)
     ap.add_argument("--rows", type=int, default=None)
     ap.add_argument("--periods", type=int, default=None)
+    ap.add_argument("--ranks", type=int, default=None)
+    ap.add_argument("--chunk-ticks", type=int, default=None)
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     sys.path.insert(0, str(ROOT))
     import pympc_quadruped_tpu_torch  # noqa: F401  (pins TF32 off)
     from benchmark.harness import check, closed_loop, manifest, program
 
-    _, _, spec, cfg, mix = manifest.cell(args.workload)
+    spec, cfg, mix = manifest.cell_files(args.workload)
     spec = dict(spec, check=dict(spec["check"]))
     if args.rows:
         spec["check"]["rows"] = args.rows
@@ -147,8 +249,10 @@ def main(argv=None) -> int:
             row["failures"] = failures(rec, limits, nums)[:20]
         emit(row)
 
+    if spec["entry"] == "sweep":
+        return calibrate_sweep(args, spec, cfg, mix, seeds, controls, tf32, faults, emit)
     for seed in sorted(faults):
-        for name in FAULTS:
+        for name in (n for n, (where, _) in FAULTS.items() if where not in SWEEP_ONLY):
             undo = plant(cfg, name)
             try:
                 rec = closed_loop.run(spec, cfg, mix, seed, args.seconds, False, args.device,

@@ -90,4 +90,4 @@ def test_each_cell_reports_what_it_must(cell):
 
 def test_layers_are_named_alike():
     layers = {m["layer"] for m in MAN["per_layer"]}
-    assert layers <= {"closed loop", "solve tick", "kernels", "device"}
+    assert layers <= {"closed loop", "solve tick", "kernels", "device", "sweep"}
