@@ -21,13 +21,25 @@ dict, and a ``commit`` marker.  ``torch.load`` reads it with
 written under a temporary name and renamed, and whichever rank finds every
 rank's file in place after its own rename writes the marker (also by
 rename), so a step counts only once it is whole: a kill during a save
-leaves the previous step the latest.  Under a process group every save and
-:meth:`wait` passes a barrier, after which rank 0 prunes the directory to
-the ``keep`` newest committed steps and removes steps left unfinished.  A
-step directory is the checkpointer's only when it holds nothing but these
-files (and their temporary names): any other directory under
-``directory``, another tool's checkpoint among them, is neither read nor
-removed.
+leaves the previous step the latest.  Every save and :meth:`wait` passes a
+barrier under a process group, after which rank 0 prunes the directory to
+the ``keep`` newest committed steps (all of them while fewer are
+committed) and removes steps left unfinished: a save prunes before it
+writes, and :meth:`close` prunes after the last write, so the directory
+ends with the ``min(keep, saves)`` newest steps, as orbax's
+``max_to_keep`` leaves it.  A step directory is the checkpointer's only
+when it holds nothing but these files (and their temporary names): any
+other directory under ``directory``, another tool's checkpoint among them,
+is neither read nor removed.
+
+Spans and counters (:mod:`..utils.profiling`): ``ckpt.save`` around
+:meth:`SweepCheckpointer.save`, with children ``ckpt.copy`` (the copy to
+the host), ``ckpt.join`` (the wait for this rank's previous write) and
+``ckpt.prune`` (both barriers and the removal), which :meth:`wait` also
+records, without a parent; counters ``ckpt.saves``, ``ckpt.pruned`` (step
+directories removed, on rank 0) and ``ckpt.write_ns`` (the time of each
+write to disk: the background writer records no span, since the span stack
+is the process's, not a thread's).
 """
 from __future__ import annotations
 
@@ -36,12 +48,14 @@ import os
 import re
 import shutil
 import threading
+import time
 from typing import Any
 
 import torch
 import torch.distributed as dist
 
 from pympc_quadruped_tpu_torch import tree
+from pympc_quadruped_tpu_torch.utils import profiling
 
 
 #: The names a step directory of this module holds.
@@ -81,6 +95,8 @@ def read_step(directory: str, step: int | None = None) -> tuple[int, list[dict]]
 
 class SweepCheckpointer:
     def __init__(self, directory: str, keep: int | None = 3, async_save: bool = True):
+        if keep is not None and keep < 1:
+            raise ValueError(f"keep must be None (keep every step) or at least 1, not {keep}")
         self.directory = os.path.abspath(directory)
         os.makedirs(self.directory, exist_ok=True)
         self.keep, self.async_save = keep, async_save
@@ -119,20 +135,24 @@ class SweepCheckpointer:
         at once (a replayed CUDA graph writes its static buffers in place),
         and written to disk in the background unless ``async_save`` is
         false."""
-        flat = {k: v.detach().to("cpu", copy=True) for k, v in tree.flatten(state).items()}
-        if step in self._committed():
-            raise ValueError(f"step {step} already exists in {self.directory}")
-        if os.path.isdir(self._step_dir(step)) and step not in self._steps():
-            raise ValueError(f"{self._step_dir(step)} holds files that are not a "
-                             "SweepCheckpointer's")
-        self._join()
-        self._sync_and_prune()
-        if self.async_save:
-            self._writer = threading.Thread(target=self._write_guarded, args=(step, flat),
-                                            daemon=False)
-            self._writer.start()
-        else:
-            self._write(step, flat)
+        with profiling.span("ckpt.save"):
+            with profiling.span("ckpt.copy"):
+                flat = {k: v.detach().to("cpu", copy=True)
+                        for k, v in tree.flatten(state).items()}
+            if step in self._committed():
+                raise ValueError(f"step {step} already exists in {self.directory}")
+            if os.path.isdir(self._step_dir(step)) and step not in self._steps():
+                raise ValueError(f"{self._step_dir(step)} holds files that are not a "
+                                 "SweepCheckpointer's")
+            self._join()
+            self._sync_and_prune()
+            profiling.count("ckpt.saves")
+            if self.async_save:
+                self._writer = threading.Thread(target=self._write_guarded,
+                                                args=(step, flat), daemon=False)
+                self._writer.start()
+            else:
+                self._write(step, flat)
 
     def _write_guarded(self, step, flat) -> None:
         try:
@@ -141,6 +161,7 @@ class SweepCheckpointer:
             self._error = e
 
     def _write(self, step: int, flat: dict) -> None:
+        t0 = time.perf_counter_ns()
         os.makedirs(self._step_dir(step), exist_ok=True)
         final = self._rank_file(step, self.rank)
         tmp = f"{final}.tmp{os.getpid()}"
@@ -155,30 +176,36 @@ class SweepCheckpointer:
             with open(tmp, "w") as f:
                 json.dump({"step": step, "world_size": self.size}, f)
             os.replace(tmp, marker)
+        profiling.count("ckpt.write_ns", time.perf_counter_ns() - t0)
 
     def _join(self) -> None:
         """Wait for this rank's write in flight and raise its error."""
-        if self._writer is not None:
-            self._writer.join()
-            self._writer = None
+        with profiling.span("ckpt.join"):
+            if self._writer is not None:
+                self._writer.join()
+                self._writer = None
         if self._error is not None:
             err, self._error = self._error, None
             raise err
 
     def _sync_and_prune(self) -> None:
         """Barrier, then rank 0 keeps the ``keep`` newest committed steps
-        and removes every other step directory of its own (none is being
-        written: each rank has joined its writer), then a barrier again."""
-        if self._group is not None:
-            dist.barrier(group=self._group)
-        if self.rank == 0:
-            committed = self._committed()
-            kept = set(committed if self.keep is None else committed[len(committed) - self.keep:])
-            for s in self._steps():
-                if s not in kept:
+        (every one while fewer are committed) and removes every other step
+        directory of its own (none is being written: each rank has joined
+        its writer), then a barrier again."""
+        with profiling.span("ckpt.prune"):
+            if self._group is not None:
+                dist.barrier(group=self._group)
+            if self.rank == 0:
+                committed = self._committed()
+                kept = set(committed if self.keep is None
+                           else committed[max(0, len(committed) - self.keep):])
+                gone = [s for s in self._steps() if s not in kept]
+                for s in gone:
                     shutil.rmtree(self._step_dir(s), ignore_errors=True)
-        if self._group is not None:
-            dist.barrier(group=self._group)
+                profiling.count("ckpt.pruned", len(gone))
+            if self._group is not None:
+                dist.barrier(group=self._group)
 
     # -- restore ------------------------------------------------------------
 

@@ -13,6 +13,7 @@ reads:
 or by hand, one process each with ``MASTER_ADDR``/``MASTER_PORT``,
 ``WORLD_SIZE``, ``RANK`` and ``LOCAL_RANK`` set; :func:`launcher_env` makes
 that environment for ranks on this host and :func:`run_ranks` starts them.
+The join itself records span ``launch.join`` (:mod:`..utils.profiling`).
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ import torch
 import torch.distributed as dist
 
 from pympc_quadruped_tpu_torch.parallel.mesh import DataMesh, data_mesh
+from pympc_quadruped_tpu_torch.utils import profiling
 
 
 #: The process group's timeout for every collective.
@@ -82,10 +84,11 @@ def init_distributed(coordinator: str | None = None,
         torch.cuda.set_device(card)
         if local_size <= cards:
             backend = "nccl"
-    dist.init_process_group(
-        backend, init_method=f"tcp://{coordinator}", world_size=num_processes,
-        rank=process_id, timeout=TIMEOUT,
-        **({"device_id": card} if backend == "nccl" else {}))
+    with profiling.span("launch.join"):
+        dist.init_process_group(
+            backend, init_method=f"tcp://{coordinator}", world_size=num_processes,
+            rank=process_id, timeout=TIMEOUT,
+            **({"device_id": card} if backend == "nccl" else {}))
     return backend
 
 

@@ -13,6 +13,13 @@ The sweep is embarrassingly parallel: a condensed 120-variable QP fits one
 scenario's share of a card, so ranks exchange only reduced metrics, a few
 scalars per chunk, never state.  With one process (no process group) every
 placement is the identity and every reduction is local.
+
+Each collective records span ``mesh.reduce`` (:mod:`..utils.profiling`:
+the host's time to pack, reduce and unpack; under NCCL the reduction is
+queued on the card's stream, so the span holds its launch, not its wait)
+and adds to counters ``mesh.collectives`` (one a call) and
+``mesh.reduce_bytes`` (the float64 buffer's bytes).  A local reduction
+records nothing.
 """
 from __future__ import annotations
 
@@ -22,6 +29,7 @@ import torch
 import torch.distributed as dist
 
 from pympc_quadruped_tpu_torch.tree import flatten, tree_map
+from pympc_quadruped_tpu_torch.utils import profiling
 
 
 @dataclass(frozen=True)
@@ -113,12 +121,16 @@ def _all_reduce(tree, mesh: DataMesh, op):
     same values."""
     if mesh.group is None:
         return tree
-    leaves = list(flatten(tree).values())
-    where = mesh.device if mesh.backend == "nccl" else torch.device("cpu")
-    buf = torch.cat([t.detach().reshape(-1).to(where, torch.float64) for t in leaves])
-    dist.all_reduce(buf, op=op, group=mesh.group)
-    parts = iter(torch.split(buf, [t.numel() for t in leaves]))
-    return tree_map(lambda t: next(parts).reshape(t.shape).to(t.device, t.dtype), tree)
+    with profiling.span("mesh.reduce"):
+        leaves = list(flatten(tree).values())
+        where = mesh.device if mesh.backend == "nccl" else torch.device("cpu")
+        buf = torch.cat([t.detach().reshape(-1).to(where, torch.float64) for t in leaves])
+        dist.all_reduce(buf, op=op, group=mesh.group)
+        parts = iter(torch.split(buf, [t.numel() for t in leaves]))
+        out = tree_map(lambda t: next(parts).reshape(t.shape).to(t.device, t.dtype), tree)
+    profiling.count("mesh.collectives")
+    profiling.count("mesh.reduce_bytes", buf.numel() * buf.element_size())
+    return out
 
 
 def global_sum(tree, mesh: DataMesh):

@@ -26,14 +26,18 @@ While :class:`..env.graph_loop.GraphLoop` captures its non-solve tick, a
 span counts the kernel nodes it adds to the graph instead; during the
 capture's warm-up calls it does nothing.  Samples go into rings of the
 newest :data:`RING` per span name, in memory, and outlive the loop that
-made them.
+made them.  A span with no loop's tick current, such as the sweep's
+(``launch.join``, ``mesh.reduce``, ``ckpt.*`` in :mod:`..parallel`),
+records the same sample with no loop and no period, which
+:func:`snapshot` gives as loop -1 and tick -1, and no events.  Counters
+(:func:`count`) are plain sums, kept only while level 1 is on.
 :func:`snapshot` synchronises once and returns them as host arrays, with the
 counters and each loop's node counts and stamps; nothing is written to
 disk.
 
 **Level 2, on while a** ``torch.profiler`` **records** (:func:`recording`,
-checked once per ``GraphLoop.step``; :func:`trace` starts one): each span
-also opens a
+checked once per ``GraphLoop.step``, and by each span outside a tick;
+:func:`trace` starts one): each span also opens a
 record of its name (``torch._C._profiler._RecordFunctionFast``, function
 scope), so the program's spans sit in the profiler's host trace beside the
 device operations, on its clock; ``record_function``'s user scope would also
@@ -300,7 +304,7 @@ class _Span:
             self.mark = r.capture.stamp()
         else:
             self.fn = None
-            if r.level2:
+            if r.level2 if r.loop is not None else recording():
                 self.fn = torch._C._profiler._RecordFunctionFast(self.name)
                 self.fn.__enter__()
             self.ev = r.event() if r.events else None
@@ -350,8 +354,9 @@ def span(name: str):
 
 
 def count(name: str, n: int = 1) -> None:
-    """Add ``n`` to counter ``name``."""
-    _R.counters[name] = _R.counters.get(name, 0) + n
+    """Add ``n`` to counter ``name``; a no-op after ``set_enabled(False)``."""
+    if _R.enabled:
+        _R.counters[name] = _R.counters.get(name, 0) + n
 
 
 def recording() -> bool:
@@ -360,8 +365,9 @@ def recording() -> bool:
 
 
 def set_enabled(flag: bool) -> None:
-    """Turn level 1 (and with it level 2) on or off; off, every span is a
-    no-op that checks one bool, and a loop built then has no traced graph."""
+    """Turn level 1 (and with it level 2) on or off; off, every span and
+    counter is a no-op that checks one bool, and a loop built then has no
+    traced graph."""
     _R.enabled = bool(flag)
 
 

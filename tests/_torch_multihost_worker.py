@@ -21,6 +21,10 @@ import torch  # noqa: E402
 NAMES = ["trotting10", "pacing10", "bounding8"]
 #: Batch, ticks and solver of the closed-loop sweeps (3 scenarios per rank).
 SWEEP_B, SWEEP_T, SWEEP_SOLVER = 6, 60, "riccati"
+#: Steps kept and saves made by the two-rank retention check.
+KEEP, SAVES = 3, 5
+#: The spans and counters of ``parallel/`` (utils/profiling.py).
+TRACED = ("launch.", "mesh.", "ckpt.")
 
 
 def _error_text(fn) -> str:
@@ -31,16 +35,39 @@ def _error_text(fn) -> str:
     return ""
 
 
+def _traced(profiling) -> dict:
+    """The spans (each sample's parent) and counters of ``parallel/`` that
+    the registry holds."""
+    snap = profiling.snapshot()
+    return {"spans": {k: list(c["parent"]) for k, c in snap["spans"].items()
+                      if k.startswith(TRACED)},
+            "counters": {k: v for k, v in snap["counters"].items() if k.startswith(TRACED)}}
+
+
+def _retention(directory: str, U: torch.Tensor) -> None:
+    """One global_mean, then SAVES async saves at ``keep=KEEP`` and a close."""
+    from pympc_quadruped_tpu_torch.parallel import launch, mesh as mesh_lib
+    from pympc_quadruped_tpu_torch.parallel.checkpoint import SweepCheckpointer
+
+    mesh_lib.global_mean(U, launch.global_data_mesh("cpu"))
+    ck = SweepCheckpointer(directory, keep=KEEP)
+    for step in range(1, SAVES + 1):
+        ck.save(step, {"U": U + step, "tick": torch.tensor(step, dtype=torch.int32)})
+    ck.close()
+
+
 def main(rank: int, nprocs: int, port: int, outdir: str) -> None:
     torch.set_num_threads(1)
     from pympc_quadruped_tpu_torch import engine, tree
     from pympc_quadruped_tpu_torch.env import srb_env
     from pympc_quadruped_tpu_torch.models import aliengo, default_mpc_params
     from pympc_quadruped_tpu_torch.parallel import launch, mesh as mesh_lib, sweep
-    from pympc_quadruped_tpu_torch.parallel.checkpoint import SweepCheckpointer
+    from pympc_quadruped_tpu_torch.parallel.checkpoint import SweepCheckpointer, read_step
+    from pympc_quadruped_tpu_torch.utils import profiling
 
     out = {"backend": launch.init_distributed(f"localhost:{port}", nprocs, rank,
                                               device="cpu")}
+    out["join_traced"] = _traced(profiling)
     mesh = launch.global_data_mesh("cpu")
     out.update(rank=mesh.rank, size=mesh.size, per_host_batch=launch.per_host_batch(8),
                per_host_error=_error_text(lambda: launch.per_host_batch(7)),
@@ -115,6 +142,23 @@ def main(rank: int, nprocs: int, port: int, outdir: str) -> None:
     step, restored = ck.restore_or(zeros)
     out.update(ckpt_step2=step, ckpt_U2=restored["U"], ckpt_count2=restored["step_count"],
                ckpt_steps=sorted(int(p) for p in os.listdir(ck.directory)))
+
+    # Retention at keep=KEEP over SAVES saves, traced; then the same untraced.
+    keep_dir = os.path.join(outdir, "keep")
+    profiling.reset()
+    _retention(keep_dir, U)
+    out["keep_traced"] = _traced(profiling)
+    out["keep_files"] = {int(p): sorted(os.listdir(os.path.join(keep_dir, p)))
+                         for p in os.listdir(keep_dir)}
+    newest, files = read_step(keep_dir)
+    out.update(keep_newest=newest, keep_U=files[rank]["U"], keep_tick=files[rank]["tick"])
+    profiling.reset()
+    profiling.set_enabled(False)
+    try:
+        _retention(os.path.join(outdir, "keep_off"), U)
+    finally:
+        profiling.set_enabled(True)
+    out["keep_off_traced"] = _traced(profiling)
 
     torch.distributed.destroy_process_group()
     torch.save(out, os.path.join(outdir, f"result_{rank}.pt"))

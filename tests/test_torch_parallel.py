@@ -15,7 +15,13 @@ the mesh-aware ``parallel/sweep.py`` and ``examples/sweep.py``) on the CPU.
   replicated tick.
 - ``SweepCheckpointer``: tests/test_env_aux.py:107-127's round trip, a
   step without its commit marker, ``keep``, another world size, and
-  another tool's step directories, which it neither reads nor removes.
+  another tool's step directories, which it neither reads nor removes;
+  the steps it keeps after ``close()`` against the JAX package's (orbax)
+  for 1-8 saves at ``keep`` 1-4, async or not, and over two ranks, the
+  newest read back bitwise, and ``keep=0`` refused.
+- The spans and counters of ``parallel/`` (``launch.join``,
+  ``mesh.reduce``, ``ckpt.*``; utils/profiling.py), in one process and
+  on two ranks, on and off, and in a ``torch.profiler``'s host events.
 - The entry point (``python -m pympc_quadruped_tpu_torch.examples.sweep
   --device cpu``): tests/test_sweep_resume.py:49 and :81 (kill after one
   chunk, resume in a fresh process, final checkpoint bitwise a straight
@@ -38,12 +44,15 @@ from pympc_quadruped_tpu.env import srb_env as jenv
 from pympc_quadruped_tpu.models.mpc import MpcParams as JMpcParams
 from pympc_quadruped_tpu.models.robots import aliengo as jaliengo
 from pympc_quadruped_tpu.parallel import sweep as jsweep
+from pympc_quadruped_tpu.parallel.checkpoint import SweepCheckpointer as JSweepCheckpointer
 
 from pympc_quadruped_tpu_torch import tree
 from pympc_quadruped_tpu_torch.models import aliengo, default_mpc_params
 from pympc_quadruped_tpu_torch.parallel import launch, mesh as mesh_lib, sweep
 from pympc_quadruped_tpu_torch.parallel.checkpoint import SweepCheckpointer, read_step
-from _torch_multihost_worker import NAMES, SWEEP_B, SWEEP_SOLVER, SWEEP_T
+from pympc_quadruped_tpu_torch.utils import profiling
+from _torch_multihost_worker import (KEEP, NAMES, SAVES, SWEEP_B, SWEEP_SOLVER, SWEEP_T,
+                                     TRACED)
 from test_torch_condense import jax_build_qp, qp_inputs
 from test_torch_qp_parity import FZ_MAX, _cone_violation, _cost, _support
 
@@ -378,6 +387,155 @@ def test_checkpoint_leaves_foreign_steps_alone(tmp_path):
     assert ckpt.latest_step == 3 and read_step(str(d))[0] == 3
     with pytest.raises(ValueError, match="not a SweepCheckpointer's"):
         ckpt.save(9, state)
+
+
+def _jax_kept(directory, saves: int, keep, async_save: bool = True) -> list[int]:
+    """The steps the JAX package's checkpointer (orbax's ``max_to_keep``)
+    leaves after saves 1..``saves`` and a close."""
+    ckpt = JSweepCheckpointer(str(directory), keep=keep, async_save=async_save)
+    for step in range(1, saves + 1):
+        ckpt.save(step, {"x": jnp.arange(4.0) + step})
+    ckpt.close()
+    return sorted(int(p) for p in os.listdir(directory) if p.isdigit())
+
+
+def _assert_bitwise(got: dict, want: dict) -> None:
+    assert got.keys() == want.keys()
+    for k, v in want.items():
+        assert got[k].dtype == v.dtype and got[k].shape == v.shape, k
+        assert torch.equal(got[k].reshape(-1).view(torch.uint8),
+                           v.reshape(-1).view(torch.uint8)), k
+
+
+@pytest.mark.parametrize("async_save", [True, False])
+@pytest.mark.parametrize("keep", [1, 2, 3, 4])
+@pytest.mark.parametrize("saves", [1, 2, 3, 5, 8])
+def test_checkpoint_keeps_what_jax_keeps(tmp_path, saves, keep, async_save):
+    """After ``close()`` the ``min(keep, saves)`` newest steps are left,
+    each whole and committed, as the JAX package's checkpointer leaves
+    them, and nothing else; the newest reads back bitwise."""
+    d = tmp_path / "ck"
+    ckpt = SweepCheckpointer(str(d), keep=keep, async_save=async_save)
+    state = _roundtrip_state()
+    for step in range(1, saves + 1):
+        state = dict(state, env_pos=state["env_pos"] + 1.5, tick=state["tick"] + 1)
+        ckpt.save(step, state)
+    ckpt.close()
+    want = _jax_kept(tmp_path / "jax", saves, keep, async_save)
+    assert want == list(range(saves - min(keep, saves) + 1, saves + 1))
+    assert sorted(os.listdir(d), key=int) == [str(s) for s in want]
+    for s in want:
+        assert sorted(os.listdir(d / str(s))) == ["commit", "rank0-of-1.pt"]
+    step, files = read_step(str(d))
+    assert step == saves == ckpt.latest_step
+    _assert_bitwise(files[0], tree.flatten(state))
+
+
+def test_checkpoint_keep_none_keeps_every_step(tmp_path):
+    ckpt = SweepCheckpointer(str(tmp_path / "ck"), keep=None)
+    for step in range(1, 6):
+        ckpt.save(step, _roundtrip_state())
+    ckpt.close()
+    assert sorted(os.listdir(tmp_path / "ck"), key=int) == ["1", "2", "3", "4", "5"]
+    assert _jax_kept(tmp_path / "jax", 5, None) == [1, 2, 3, 4, 5]
+
+
+def test_checkpoint_refuses_keep_below_one(tmp_path):
+    """orbax's ``max_to_keep`` is None or a positive count."""
+    with pytest.raises(ValueError, match="at least 1, not 0"):
+        SweepCheckpointer(str(tmp_path / "ck"), keep=0)
+
+
+def test_checkpoint_two_ranks_keeps_what_jax_keeps(ranks, tmp_path):
+    """Two gloo ranks, ``keep=3``, 5 async saves: the steps JAX keeps, each
+    with both ranks' files and its commit marker; each rank's rows of the
+    newest read back bitwise."""
+    want = _jax_kept(tmp_path, SAVES, KEEP)
+    assert want == [3, 4, 5]
+    for res in ranks:
+        assert res["keep_files"] == {s: ["commit", "rank0-of-2.pt", "rank1-of-2.pt"]
+                                     for s in want}
+        assert res["keep_newest"] == SAVES and int(res["keep_tick"]) == SAVES
+        _assert_bitwise({"U": res["keep_U"]}, {"U": res["U_admm"] + SAVES})
+
+
+def _parallel_traced() -> dict:
+    snap = profiling.snapshot()
+    return {"spans": {k: c for k, c in snap["spans"].items() if k.startswith(TRACED)},
+            "counters": {k: v for k, v in snap["counters"].items() if k.startswith(TRACED)}}
+
+
+def _save_three(directory) -> None:
+    """3 async saves at ``keep=2`` and a close: the close prunes step 1."""
+    ckpt = SweepCheckpointer(str(directory), keep=2)
+    for step in (1, 2, 3):
+        ckpt.save(step, _roundtrip_state())
+    ckpt.close()
+
+
+def test_checkpoint_and_reductions_trace_one_process(tmp_path):
+    """One process: ``ckpt.save`` with its three children each save,
+    ``ckpt.join`` and ``ckpt.prune`` once more from ``close()`` with no
+    parent, every sample outside a loop (-1); the counters; no
+    ``mesh.reduce`` without a group; nothing at all when disabled."""
+    profiling.reset()
+    try:
+        mesh = launch.global_data_mesh("cpu")
+        assert float(mesh_lib.global_mean(torch.arange(4.0), mesh)) == 1.5
+        _save_three(tmp_path / "on")
+        got = _parallel_traced()
+        spans = got["spans"]
+        assert set(spans) == {"ckpt.save", "ckpt.copy", "ckpt.join", "ckpt.prune"}
+        assert spans["ckpt.save"]["parent"] == [None] * 3
+        assert spans["ckpt.copy"]["parent"] == ["ckpt.save"] * 3
+        for name in ("ckpt.join", "ckpt.prune"):
+            assert spans[name]["parent"] == ["ckpt.save"] * 3 + [None]
+        for c in spans.values():
+            assert (c["loop"] == -1).all() and (c["tick"] == -1).all()
+            assert np.isnan(c["device_ms"]).all() and (c["host_ns"] > 0).all()
+        saves = spans["ckpt.save"]
+        children = sum(spans[n]["host_ns"][:3] for n in ("ckpt.copy", "ckpt.join", "ckpt.prune"))
+        assert (saves["host_ns"] - saves["self_ns"] == children).all()
+        counters = got["counters"]
+        assert counters.pop("ckpt.write_ns") > 0
+        assert counters == {"ckpt.saves": 3, "ckpt.pruned": 1}
+        assert sorted(os.listdir(tmp_path / "on")) == ["2", "3"]
+
+        profiling.reset()
+        profiling.set_enabled(False)
+        mesh_lib.global_mean(torch.arange(4.0), mesh)
+        _save_three(tmp_path / "off")
+        assert _parallel_traced() == {"spans": {}, "counters": {}}
+        assert sorted(os.listdir(tmp_path / "off")) == ["2", "3"]
+    finally:
+        profiling.set_enabled(True)
+        profiling.reset()
+
+
+def test_checkpoint_spans_reach_the_profiler(tmp_path):
+    """Outside a loop's tick a span checks for a profiler itself, so the
+    save's spans are host events of its trace (level 2)."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        _save_three(tmp_path / "ck")
+    names = {e.name for e in prof.events()}
+    assert {"ckpt.save", "ckpt.copy", "ckpt.join", "ckpt.prune"} <= names
+
+
+def test_two_ranks_trace_join_reduce_and_save(ranks):
+    """Two gloo ranks: ``launch.join`` once; one ``global_mean`` is one
+    ``mesh.reduce`` of one float64; 5 saves and a close as in one process,
+    rank 0 alone pruning (steps 1 and 2); nothing when disabled."""
+    for r, res in enumerate(ranks):
+        assert res["join_traced"] == {"spans": {"launch.join": [None]}, "counters": {}}
+        spans, counters = res["keep_traced"]["spans"], dict(res["keep_traced"]["counters"])
+        assert spans["mesh.reduce"] == [None]
+        assert spans["ckpt.save"] == [None] * SAVES
+        assert spans["ckpt.copy"] == ["ckpt.save"] * SAVES
+        assert spans["ckpt.join"] == spans["ckpt.prune"] == ["ckpt.save"] * SAVES + [None]
+        assert counters.pop("ckpt.write_ns") > 0
+        assert counters == {"mesh.collectives": 1, "mesh.reduce_bytes": 8, "ckpt.saves": SAVES,
+                            **({"ckpt.pruned": 2} if r == 0 else {})}
+        assert res["keep_off_traced"] == {"spans": {}, "counters": {}}
 
 
 # ---------------------------------------------------------------------------
