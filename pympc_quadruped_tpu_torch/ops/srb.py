@@ -25,8 +25,12 @@ def state_space(robot: RobotParams, yaw: torch.Tensor, pos_base_feet: torch.Tens
     inertia_world = Rz @ robot.inertia @ RzT
     # Kept as a general inverse on purpose, as in the JAX module
     # (ops/srb.py:55-60): the closed-loop trots are sensitive to the ~1e-7
-    # difference an adjugate inverse makes.
-    inv_inertia = torch.linalg.inv(inertia_world)
+    # difference an adjugate inverse makes.  ``inv_ex`` runs the kernels of
+    # ``inv`` without reading the factorisation's error code on the host, so
+    # the solve tick does not wait for the card here; a singular inertia
+    # gives non-finite entries in its row, as ``jnp.linalg.inv`` does, and
+    # the controller then holds that row's forces.
+    inv_inertia, _ = torch.linalg.inv_ex(inertia_world)
 
     lead = yaw.shape
     Ac = yaw.new_zeros(lead + (NUM_STATE, NUM_STATE))

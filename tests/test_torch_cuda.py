@@ -502,6 +502,38 @@ def test_cuda_solve_syncs_count_an_added_item(cuda_device, monkeypatch):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("plant,solver", [("srb", "admm_fast"), ("srb", "riccati"),
+                                          ("fullorder", "admm_fast")])
+def test_cuda_solve_tick_does_not_synchronise(cuda_device, plant, solver):
+    """The eager solve tick enqueues without a host synchronisation, so the
+    host can run ahead of the card's replays: ``solve.syncs`` reads 0 over
+    three traced solve ticks at B=64, and a second loop's three solve ticks
+    run under ``torch.cuda.set_sync_debug_mode("error")``."""
+    ticks = 60
+    mpc, make = _loop_maker(cuda_device, plant, solver, ticks)
+    before = profiling.snapshot()["counters"]
+    _under_profiler(make(), ticks)
+    after = profiling.snapshot()["counters"]
+    assert after["solve.traced_ticks"] - before.get("solve.traced_ticks", 0) == 3
+    assert after.get("solve.syncs", 0) - before.get("solve.syncs", 0) == 0
+    loop = make()
+    solved = 0
+    for _ in range(ticks):
+        if not ctrl.is_solve_tick(mpc, loop.next_tick):
+            loop.step()
+            continue
+        prev = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            loop.step()
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
+        solved += 1
+    (state, carry), _ = loop.result()
+    assert solved == 3 and bool(torch.isfinite(carry.mpc.contact_forces).all())
+
+
+@pytest.mark.cuda
 def test_cuda_traced_capture_only_where_traced(cuda_device):
     """``capture.traced`` counts one traced graph for a loop its caller
     steps, none for a ``rollout()`` outside a profiler or a loop built after

@@ -6,7 +6,9 @@ rtol = atol = 1e-5 for arithmetic; 1e-4 where the output goes through a
 transcendental (sin/cos/atan2/asin/acos/sqrt): XLA:CPU and PyTorch use
 different f32 implementations that differ by a few ulp, and the kinematic
 chains sum several such terms at unit scale.  Integer gait tables are
-compared exactly.
+compared exactly.  ``srb.state_space``'s unchecked inverse is also held bit
+for bit to the checked one, and a singular inertia row to the JAX module's
+non-finite answer and to the controller's hold of that row's forces.
 """
 import dataclasses
 
@@ -25,9 +27,12 @@ from pympc_quadruped_tpu.ops import lie as jlie
 from pympc_quadruped_tpu.ops import srb as jsrb
 
 from pympc_quadruped_tpu_torch import convert, tree
-from pympc_quadruped_tpu_torch.models import Gaits, MpcParams, aliengo
+from pympc_quadruped_tpu_torch.control import controller
+from pympc_quadruped_tpu_torch.env import srb_env
+from pympc_quadruped_tpu_torch.models import Command, Gaits, MpcParams, aliengo, default_mpc_params
 from pympc_quadruped_tpu_torch.models.robots import LEG_NAMES
 from pympc_quadruped_tpu_torch.ops import gaitsched, kin, lie, srb
+from pympc_quadruped_tpu_torch.ops.qp import admm, admm_fast, ipm, riccati
 
 torch.set_num_threads(1)
 
@@ -169,6 +174,95 @@ def test_state_space_and_discretize_match_jax():
     Ad, Bd = srb.discretize(Ac, Bc, MpcParams().dt_predict)
     for a, b in [(Acj, Ac), (Bcj, Bc), (Adj, Ad), (Bdj, Bd)]:
         _cmp(a, b, TRANSC)
+
+
+def _state_space_inputs(seed, dtype):
+    rng = np.random.default_rng(seed)
+    yaw = torch.from_numpy(rng.uniform(-3.0, 3.0, B)).to(dtype)
+    feet = torch.from_numpy(np.array([[0.24, 0.13, -0.38], [0.24, -0.13, -0.38],
+                                      [-0.24, 0.13, -0.38], [-0.24, -0.13, -0.38]])
+                            + rng.normal(scale=0.05, size=(B, 4, 3))).to(dtype)
+    robot = tree.tree_map(lambda t: t.to(dtype) if t.is_floating_point() else t,
+                          tree.tile(_robots()[1], B))
+    return robot, yaw, feet
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("seed", [11, 12])
+def test_state_space_bitwise_the_checked_inverse(monkeypatch, dtype, seed):
+    """``state_space`` inverts the inertia once, with ``inv_ex`` (no error
+    check on the host, so no synchronisation on a card), and Ac and Bc are
+    bit for bit what the checked ``torch.linalg.inv`` in its place gives,
+    on random yaws and feet."""
+    robot, yaw, feet = _state_space_inputs(seed, dtype)
+    Ac, Bc = srb.state_space(robot, yaw, feet)
+    calls = []
+
+    def checked(A):
+        calls.append(A.shape)
+        return torch.linalg.inv(A), torch.zeros(A.shape[:-2], dtype=torch.int32)
+
+    monkeypatch.setattr(torch.linalg, "inv_ex", checked)
+    Ac_inv, Bc_inv = srb.state_space(robot, yaw, feet)
+    assert calls == [(B, 3, 3)]
+    assert Ac.dtype == Bc.dtype == dtype
+    assert torch.equal(Ac, Ac_inv) and torch.equal(Bc, Bc_inv)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_state_space_singular_inertia_row_is_nonfinite_alone(dtype):
+    """A singular (zero) inertia in one row gives non-finite torque rows of
+    Bc in that row alone, without raising, as the JAX module's
+    ``jnp.linalg.inv`` does; every other entry is bitwise unchanged."""
+    robot, yaw, feet = _state_space_inputs(13, dtype)
+    bad = dataclasses.replace(robot, inertia=robot.inertia.clone())
+    bad.inertia[3] = 0.0
+    Ac, Bc = srb.state_space(robot, yaw, feet)
+    Ac_bad, Bc_bad = srb.state_space(bad, yaw, feet)
+    others = torch.arange(B) != 3
+    assert torch.equal(Ac_bad, Ac)
+    assert torch.equal(Bc_bad[others], Bc[others])
+    assert not torch.isfinite(Bc_bad[3, 6:9]).any()
+    assert torch.equal(Bc_bad[3, :6], Bc[3, :6]) and torch.equal(Bc_bad[3, 9:], Bc[3, 9:])
+    jr = jaliengo()
+    _, Bcj = jsrb.state_space(jr.replace(inertia=jnp.zeros_like(jr.inertia)),
+                              jnp.float32(yaw[3]), jnp.asarray(feet[3].float().numpy()))
+    np.testing.assert_array_equal(np.isfinite(np.asarray(Bcj)), torch.isfinite(Bc_bad[3]).numpy())
+
+
+@pytest.mark.parametrize("solver", ["riccati", "admm_fast"])
+def test_solve_branch_holds_forces_of_a_singular_inertia_row(solver):
+    """One solve tick whose robot row 0 has a singular inertia: that row's
+    solve comes back non-finite and keeps its held forces bit for bit, and
+    every other row's forces are bitwise those of the same call with the
+    row's inertia intact (h=10 trot from the nominal stance, B=4)."""
+    Bs, h = 4, 10
+    mpc = default_mpc_params(h, device="cpu")
+    robot = tree.tile(aliengo(device="cpu"), Bs)
+    gait = tree.tile(Gaits.trotting10(device="cpu"), Bs)
+    cmd = tree.tile(Command.trot_forward(0.6, device="cpu"), Bs)
+    carry = tree.tile(controller.init_carry(h, device="cpu"), Bs)
+    obs = srb_env.observe(robot, srb_env.default_init_state(robot))
+    carry, _ = controller.step_batch(robot, mpc, gait, cmd, carry, obs, 0, solver=solver)
+    held = carry.mpc.contact_forces
+    ks, _, table, x_t, mpc_carry, vel = controller._pre_solve(robot, mpc, gait, cmd, carry,
+                                                              obs, 20)
+    cfgs = (ipm.IpmConfig(), admm.AdmmConfig(), admm_fast.AdmmFastConfig.inloop(),
+            riccati.RiccatiConfig.inloop())
+    solve = lambda r: controller._solve_branch(r, mpc, cmd, mpc_carry, ks, x_t, vel, table,
+                                               solver, *cfgs)
+    bad = dataclasses.replace(robot, inertia=robot.inertia.clone())
+    bad.inertia[0] = 0.0
+    carry_ok, forces_ok = solve(robot)
+    carry_bad, forces_bad = solve(bad)
+    assert torch.isfinite(held).all() and held.abs().max() > 1.0
+    assert not torch.equal(forces_ok[0], held[0])
+    assert torch.equal(forces_bad[0], held[0])
+    assert torch.equal(forces_bad[1:], forces_ok[1:])
+    assert torch.equal(carry_bad.contact_forces, forces_bad)
+    # The failed row restarts cold; the others keep their warm start.
+    assert not carry_bad.qp_primal[0].any() and not carry_bad.qp_dual[0].any()
+    assert torch.equal(carry_bad.qp_primal[1:], carry_ok.qp_primal[1:])
 
 
 def test_pack_state_matches_jax():
