@@ -1,13 +1,16 @@
 """Build and load the port's CUDA kernels at first use.
 
 ``nvcc`` compiles each ``csrc/*.cu`` for ``sm_90a`` (no fast-math) into a
-shared library of its own with a plain C interface, all sources at once in
-parallel, and :func:`load` opens them with ``ctypes``.  The libraries go to
-``_build/<hash of the source and headers>/`` inside the package
-(git-ignored), so a checkout builds everything from its own sources:
-nothing is downloaded or prebuilt.  :func:`build_host` compiles a host
-source with the system C++ compiler: a kernel's host twin for the CPU
-tests, and the C++ QP oracle (``oracle/cpp.py``).
+shared library of its own with a plain C interface, and :func:`load` opens
+it with ``ctypes`` the first time it is asked for; :func:`load_all` builds
+every source at once, in parallel.  A library goes to ``_build/<hash>/``
+inside the package (git-ignored), the hash taken over the flags, the source
+and the headers it reaches through ``#include "..."``, so a checkout builds
+from its own sources (nothing is downloaded or prebuilt) and a header's edit
+rebuilds only the libraries that include it.  :func:`build_host` compiles a
+host source with the system C++ compiler under the same hash rule: a
+kernel's host twin for the CPU tests, and the C++ QP oracle
+(``oracle/cpp.py``).
 """
 from __future__ import annotations
 
@@ -15,6 +18,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -70,9 +74,25 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def _digest(sources, flags) -> str:
+_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def _headers(src: Path) -> list[Path]:
+    """The headers in ``csrc/`` that ``src`` reaches through
+    ``#include "..."``, directly or through other headers."""
+    seen, todo = set(), [src]
+    while todo:
+        for name in _INCLUDE.findall(todo.pop().read_text()):
+            h = CSRC / name
+            if h.is_file() and h not in seen:
+                seen.add(h)
+                todo.append(h)
+    return sorted(seen)
+
+
+def _digest(src: Path, flags) -> str:
     h = hashlib.sha256(" ".join(flags).encode())
-    for p in sorted(CSRC.glob("*.cuh")) + list(sources):
+    for p in [src, *_headers(src)]:
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.hexdigest()[:16]
@@ -104,32 +124,29 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
-def _build_one(src: Path) -> Library:
-    out = BUILD_DIR / _digest([src], NVCC_FLAGS) / f"lib{src.stem}.so"
+@functools.cache
+def load(name: str) -> Library:
+    """The loaded library of ``csrc/<name>.cu``, built first if its hash
+    directory lacks it (once a process)."""
+    src = CSRC / f"{name}.cu"
+    out = BUILD_DIR / _digest(src, NVCC_FLAGS) / f"lib{name}.so"
     seconds, log = _compile([_nvcc()], NVCC_FLAGS, [src], out)
     return Library(_bind(ctypes.CDLL(str(out))), out, seconds, log)
 
 
-@functools.cache
 def load_all() -> dict[str, Library]:
-    """Build every ``csrc/*.cu`` (one nvcc each, all started together, once
-    per source hash) and load them; keys are the source stems."""
-    sources = sorted(CSRC.glob("*.cu"))
-    with ThreadPoolExecutor(max_workers=len(sources)) as pool:
-        libs = list(pool.map(_build_one, sources))
-    return {src.stem: lib for src, lib in zip(sources, libs)}
-
-
-def load(name: str) -> Library:
-    """The loaded library of ``csrc/<name>.cu`` (building them all at first use)."""
-    return load_all()[name]
+    """:func:`load` of every ``csrc/*.cu``, all started together; keys are
+    the source stems."""
+    names = [src.stem for src in sorted(CSRC.glob("*.cu"))]
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        return dict(zip(names, pool.map(load, names)))
 
 
 def build_host(source: str, out_dir: Path) -> ctypes.CDLL:
     """Compile ``csrc/<source>`` with the host C++ compiler into ``out_dir``
     and bind it like the CUDA libraries."""
     src = CSRC / source
-    out = Path(out_dir) / f"{src.stem}_{_digest([src], HOST_FLAGS)}.so"
+    out = Path(out_dir) / f"{src.stem}_{_digest(src, HOST_FLAGS)}.so"
     cxx = os.environ.get("CXX") or shutil.which("g++") or "c++"
     _compile([cxx], HOST_FLAGS, [src], out)
     return _bind(ctypes.CDLL(str(out)))

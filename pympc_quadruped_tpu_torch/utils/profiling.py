@@ -55,8 +55,9 @@ capture adds one to counter ``capture.traced``.
 
 The counters the kernels' wrappers and the loop keep
 (``admm_cuda.LAUNCHES``, ``riccati_cuda.LAUNCHES``,
-``graph_loop.CAPTURES``) stay in their modules; :func:`snapshot` reports
-them under those names, and :func:`reset` leaves them alone.
+``graph_loop.CAPTURES``) live in their modules, where their readers read
+them; this module imports nothing from ``env/`` or ``ops/``, so neither
+:func:`snapshot` nor :func:`reset` sees them.
 """
 from __future__ import annotations
 
@@ -524,16 +525,13 @@ def snapshot() -> dict:
       its control period's solve tick, -1 outside a loop), ``start_ns``,
       ``host_ns``, ``self_ns``, ``parent`` (a list) and ``device_ms`` (NaN
       where no events were recorded);
-    - ``counters``: the registry's and the modules' (``admm_cuda.LAUNCHES``,
-      ``riccati_cuda.LAUNCHES``, ``graph_loop.CAPTURES``);
+    - ``counters``: the registry's own (:func:`count`), not the modules'
+      counters (``admm_cuda.LAUNCHES`` and the like);
     - ``loops``: per loop id, its ``device``, ``tick0``, ``num_ticks``, the
       kernel ``nodes`` of each span in its plain graph, and where it has a
       traced graph its stamp ``layout`` (name, parent, entry column, exit
       column) and ``stamps`` ((num_ticks, columns) ns of ``%globaltimer``, 0
       in a row no traced replay wrote)."""
-    from pympc_quadruped_tpu_torch.env import graph_loop
-    from pympc_quadruped_tpu_torch.ops.qp import admm_cuda, riccati_cuda
-
     r = _R
     if torch.cuda.is_available() and torch.cuda.is_initialized():
         torch.cuda.synchronize()
@@ -543,8 +541,5 @@ def snapshot() -> dict:
         loops[i] = {"device": lp.device, "tick0": lp.tick0, "num_ticks": lp.num_ticks,
                     "nodes": dict(lp.nodes), "layout": list(lp.layout),
                     "stamps": None if lp.stamps is None else lp.stamps.cpu().numpy()}
-    counters = {"admm_cuda.LAUNCHES": dict(admm_cuda.LAUNCHES),
-                "riccati_cuda.LAUNCHES": riccati_cuda.LAUNCHES,
-                "graph_loop.CAPTURES": graph_loop.CAPTURES, **r.counters}
     return {"spans": {name: _columns(list(ring)) for name, ring in r.rings.items()},
-            "counters": counters, "loops": loops}
+            "counters": dict(r.counters), "loops": loops}

@@ -18,6 +18,8 @@ import os
 import subprocess
 import sys
 
+import pytest
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SCRIPT = """
@@ -133,3 +135,15 @@ def test_compute_path_does_not_import_the_oracle():
                     bad = [n for n in imported_modules(path)
                            if n.startswith("pympc_quadruped_tpu_torch.oracle") or ".oracle" in n]
                     assert not bad, (path, bad)
+
+
+@pytest.mark.parametrize("module,forbidden", [
+    ("_build.py", ("pympc_quadruped_tpu_torch",)),
+    ("utils/profiling.py", ("pympc_quadruped_tpu_torch.env", "pympc_quadruped_tpu_torch.ops")),
+])
+def test_lower_layers_import_nothing_above_them(module, forbidden):
+    """``_build.py`` loads alone by file path (the sweep's prebuild), and the
+    tracing module sits below the loop and the solvers it traces."""
+    bad = [n for n in imported_modules(os.path.join(PORT, module))
+           if any(n == f or n.startswith(f + ".") for f in forbidden)]
+    assert not bad, (module, bad)

@@ -14,10 +14,9 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from benchmark.harness import manifest
 from benchmark.metrics import _spans
 from pympc_quadruped_tpu_torch import tree
-from pympc_quadruped_tpu_torch.env import fullorder, graph_loop, srb_env
+from pympc_quadruped_tpu_torch.env import fullorder, srb_env
 from pympc_quadruped_tpu_torch.estimation import kf
 from pympc_quadruped_tpu_torch.models import Command, Gaits, aliengo, default_mpc_params
-from pympc_quadruped_tpu_torch.ops.qp import admm_cuda, riccati_cuda
 from pympc_quadruped_tpu_torch.utils import profiling
 
 PERIOD = 20
@@ -77,14 +76,11 @@ def test_ring_keeps_the_newest_samples(monkeypatch):
     assert profiling.snapshot()["spans"]["x"]["tick"].tolist() == list(range(12, 20))
 
 
-def test_counters_reset_and_the_modules_counters():
+def test_counters_and_reset():
     profiling.count("a")
     profiling.count("a", 2)
     counters = profiling.snapshot()["counters"]
     assert counters["a"] == 3
-    assert counters["admm_cuda.LAUNCHES"] == admm_cuda.LAUNCHES
-    assert counters["riccati_cuda.LAUNCHES"] == riccati_cuda.LAUNCHES
-    assert counters["graph_loop.CAPTURES"] == graph_loop.CAPTURES
     with profiling.span("s"):
         pass
     profiling.reset()
