@@ -61,12 +61,27 @@ result):
    scenarios with each solver: its non-solve ticks replay one captured CUDA
    graph.  The first 100 ticks must equal eager ``run_ticks`` bit for bit
    (any leaf that differs is named, and must stay within 1e-6 relative);
-   3000 ticks must keep >= 99% in phase 3's band with one launch of each
-   of the solver's kernels per solve tick (150).  Then, from tick 3000: the
+   3000 ticks must keep >= 99% in phase 3's band with one host launch of
+   each of the solver's kernels per solve tick (150), the eager solve
+   between the segments of the loop's tape (``utils/tape.py``), and the
+   condensing kernel and the controller's tick kernels launched at the
+   loop's build only (:func:`loop_launches`, :func:`loop_ctrl_launches`).
+   Then, from tick 3000: the
    20-tick period against the 20 ms limit, the eager solve tick and one
    replayed non-solve tick (CUDA events, medians of 10 periods), the
    graph's kernel and copy nodes, and the device's busy share over two
-   periods (``torch.profiler``: kernel time over the periods' time);
+   periods (``torch.profiler``: kernel time over the periods' time).
+   8b, the controller's tick kernels (``csrc/ctrl_tick.cu``: ``srb_observe``,
+   ``ctrl_pre``, ``ctrl_post``) at B=4096, h=16 (TROTTING16) and h=10
+   (TROTTING10): a Riccati loop brought 200 ticks in, then 40 ticks run
+   eagerly with the plain functions (``srb_env.observe``,
+   ``controller._pre_solve``, ``_post_solve``), each call's kernel beside
+   it on the same CUDA tensors: every float output within 16 float32 ulps
+   of its field's largest magnitude (a torque's of its operands), the
+   flags, phases, gait table and latches' remaining time equal
+   (tests/test_torch_ctrl_tick.py's bounds); each kernel alone (its device
+   time, ``torch.profiler``) against its plain function alone, and its
+   bytes against 3.35 TB/s;
 9. the estimator ``rollout`` as the JAX bench runs it (bench.py:914-960):
    A1, h=10, TROTTING10 at 0.8 m/s, ``KfParams.default()``,
    ``SensorNoise.default()``, ``cmd_ramp_ticks=300``, the default solver,
@@ -89,8 +104,8 @@ result):
    default ``admm_fast`` (bench.py:757's configuration); both at B=4096
    scenarios jittered as tests/test_rbd.py:35-65 does, 1500 ticks.  The
    first 100 ticks must equal the same tick run eagerly bit for bit, each
-   solver kernel (with ``admm_fast`` the condensing kernel too) must launch
-   once per solve tick (75), and the in-band
+   solver kernel must launch once per solve tick (75) and, as in phase 8,
+   the condensing and tick kernels at the loop's build only, and the in-band
    share (tests/test_h16_config.py:99-126, tests/test_rbd.py:400-425) must
    reach min(0.99, the JAX package's share on the same scenarios - 0.01);
    then the period, the eager solve tick, one replayed tick, the graph's
@@ -191,6 +206,7 @@ torch, numpy and the port only.  ``--worker`` runs one process of phase 13.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -204,7 +220,7 @@ import torch
 
 from pympc_quadruped_tpu_torch import _build, engine, tree
 from pympc_quadruped_tpu_torch.control import controller as ctrl
-from pympc_quadruped_tpu_torch.control import refmpc
+from pympc_quadruped_tpu_torch.control import ctrl_cuda, refmpc
 from pympc_quadruped_tpu_torch.env import fullorder, graph_loop, mjcf, srb_env, terrain
 from pympc_quadruped_tpu_torch.estimation import kf
 from pympc_quadruped_tpu_torch.examples.batch_viz import record_batch
@@ -223,6 +239,7 @@ from pympc_quadruped_tpu_torch.utils import observability, profiling
 
 B_MAIN, B_RAGGED, HORIZON = 4096, 130, 16
 N_TICKS, BAND_TICKS, PERIOD = 3000, 750, 20
+CTRL_WARM_TICKS = 200
 # Bars of the TPU kernel against its jnp path (tests/test_riccati_pallas.py:146-151).
 FZ_REL_BAR, U_ABS_BAR = 0.02, 1.0
 # Condensed bars, the JAX bench's batch kernel gate (bench.py:520, :531,
@@ -394,25 +411,242 @@ def jittered_init(robot, B, seed, dev):
                                vel=state.vel + torch.tensor(dvel, device=dev))
 
 
-def closed_loop_setup(dev, B=None):
-    """The trot scenarios of the closed loops, B_MAIN of them by default."""
+def closed_loop_setup(dev, B=None, h=HORIZON):
+    """The trot scenarios of the closed loops, B_MAIN of them by default, at
+    horizon ``h`` (TROTTING16 at h=16, TROTTING10 at h=10)."""
     B = B or B_MAIN
-    mpc = default_mpc_params(HORIZON, device=dev)
+    mpc = default_mpc_params(h, device=dev)
     robot = tree.tile(aliengo(device=dev), B)
-    gait = tree.tile(Gaits.trotting16(device=dev), B)
+    gait = tree.tile(Gaits.by_name("trotting16" if h == 16 else "trotting10", device=dev), B)
     cmd = tree.tile(Command.trot_forward(1.2, device=dev), B)
-    carry = tree.tile(ctrl.init_carry(HORIZON, device=dev), B)
+    carry = tree.tile(ctrl.init_carry(h, device=dev), B)
     return mpc, robot, gait, cmd, carry, jittered_init(robot, B, seed=31, dev=dev)
 
 
 def kernel_launches() -> dict:
+    """The solvers' and the condensing kernel's host launches."""
     return {"riccati_admm": riccati_cuda.LAUNCHES, **admm_cuda.LAUNCHES}
+
+
+def loop_launches(name: str, on_path: tuple, n_solves: int) -> int:
+    """Host launches of kernel ``name`` by one closed loop built on the card
+    and run for ``n_solves`` solve ticks: the solver's kernels once a solve
+    tick (the eager solve between the segments of the loop's tape,
+    utils/tape.py); the condensing kernel, which the tape's graphs replay,
+    three times, all at the loop's build (the tape's two warm-up ticks and
+    its recording)."""
+    if name not in on_path:
+        return 0
+    return 3 if name == "condense" else n_solves
+
+
+def loop_ctrl_launches(traced: int, observe: bool) -> dict:
+    """Host launches of each controller tick kernel by one closed loop built
+    on the card, whatever its ticks: one a call of the tick at the build
+    (the graph's two warm-up calls and its capture, ``traced`` traced
+    captures, the tape's two warm-up calls and its recording), none when a
+    tick replays the graph or plays the tape; ``srb_observe`` with the SRB
+    plant only."""
+    n = 6 + traced
+    return {"srb_observe": n if observe else 0, "ctrl_pre": n, "ctrl_post": n}
 
 
 def reset_launches():
     riccati_cuda.LAUNCHES = 0
-    for name in admm_cuda.LAUNCHES:
-        admm_cuda.LAUNCHES[name] = 0
+    for launches in (admm_cuda.LAUNCHES, ctrl_cuda.LAUNCHES):
+        for name in launches:
+            launches[name] = 0
+
+
+def traced_captures() -> int:
+    return profiling.snapshot()["counters"].get("capture.traced", 0)
+
+
+# ---------------------------------------------------------------------------
+# The controller's tick kernels (csrc/ctrl_tick.cu)
+# ---------------------------------------------------------------------------
+
+# Each float output of a tick kernel within CTRL_ULPS float32 ulps of the
+# largest magnitude of its field (a torque's of its operands,
+# :func:`torque_scale`); the CTRL_EXACT fields, which take no product, and
+# the flags bit for bit (tests/test_torch_ctrl_tick.py states why).
+CTRL_ULPS = 16.0
+CTRL_EXACT = {"swing_states", "table", "remaining_swing_time"}
+PRE_NAMES = ("kin", "swing_states", "table", "x_t", "mpc", "vel_des_world")
+POST_NAMES = ("swing", "pos_targets", "vel_targets", "torques")
+CTRL_KERNELS = ("srb_observe", "ctrl_pre", "ctrl_post")
+CTRL_SHADOW_TICKS = 40
+
+
+def torque_scale(robot, ks, forces, swing_states, pos_t, vel_t):
+    """The largest magnitude of the operands behind one torque, which its
+    float32 rounding scales with: ``legctrl.leg_torques``' J^T R^T f, a
+    swing leg's f = kp (p_t - p) R^T + kd (v_t - v) R^T taken with each
+    target and foot term at its own size.  A swing leg's PD terms of
+    ~60 N can cancel to a torque of ~2 N m."""
+    Ra = ks.R_base.abs()
+    RaT = Ra.transpose(-1, -2)
+    swing = (robot.kp_swing[..., None, :] * ((pos_t.abs() + ks.base_pos_base_feet.abs()) @ RaT)
+             + robot.kd_swing[..., None, :] * ((vel_t.abs() + ks.base_vel_base_feet.abs()) @ RaT))
+    f = torch.where((swing_states != 0)[..., None], swing, forces.reshape(-1, 4, 3).abs()) @ Ra
+    return (ks.jac_feet.abs() * f[..., :, None]).sum(dim=-2).max()
+
+
+def ctrl_errors(worst, kernel, got, want, scales=None):
+    """Fold each output's error into ``worst[name] = (error, bound)``
+    (device tensors, no host read): ulps of its field's largest magnitude
+    (or of ``scales[field]``), bound CTRL_ULPS; for the CTRL_EXACT fields
+    and flags the number of elements that differ, bound 0."""
+    eps = torch.finfo(torch.float32).eps
+    g = tree.flatten(got)
+    scales = scales or {}
+    for k, w in tree.flatten(want).items():
+        if (w.dtype == torch.bool or k.split("/")[0] in CTRL_EXACT
+                or k.rsplit("/", 1)[-1] in CTRL_EXACT):
+            r, bound = (g[k] != w).sum().float(), 0.0
+        else:
+            scale = scales[k] if k in scales else w.abs().max()
+            r, bound = (g[k] - w).abs().max() / (eps * scale.clamp(min=1e-6)), CTRL_ULPS
+        name = f"{kernel}/{k}"
+        worst[name] = (r if name not in worst else torch.maximum(worst[name][0], r), bound)
+
+
+def shadow_ctrl_kernels(patch, lib=None) -> dict:
+    """Make a closed loop run the plain functions and, beside each call, its
+    kernel on the same tensors (through ``lib``, by default the CUDA
+    library); ``patch(obj, name, value)`` sets a module attribute.  Returns
+    the dict that :func:`ctrl_errors` fills."""
+    worst = {}
+    pre, post, observe = ctrl._pre_solve, ctrl._post_solve, srb_env.observe
+    patch(ctrl_cuda, "engages", lambda *a: False)
+
+    def pre_(robot, mpc, gait, cmd, carry, obs, tick):
+        want = pre(robot, mpc, gait, cmd, carry, obs, tick)
+        got = ctrl_cuda.ctrl_pre(robot, mpc, gait, cmd, carry.mpc, obs, tick, lib=lib)
+        ctrl_errors(worst, "ctrl_pre", dict(zip(PRE_NAMES, got)), dict(zip(PRE_NAMES, want)))
+        return want
+
+    def post_(robot, mpc, gait, cmd, carry, ks, swing_states, mpc_carry, forces):
+        want = post(robot, mpc, gait, cmd, carry, ks, swing_states, mpc_carry, forces)
+        got = ctrl_cuda.ctrl_post(robot, mpc, gait, cmd, ks, carry.swing, swing_states, forces,
+                                  lib=lib)
+        w = (want[0].swing, want[1].pos_targets, want[1].vel_targets, want[1].torques)
+        scale = torque_scale(robot, ks, forces, swing_states, w[1], w[2])
+        ctrl_errors(worst, "ctrl_post", dict(zip(POST_NAMES, got)), dict(zip(POST_NAMES, w)),
+                    {"torques": scale})
+        return want
+
+    def observe_(robot, state):
+        want = observe(robot, state)
+        ctrl_errors(worst, "srb_observe", ctrl_cuda.srb_observe(robot, state, lib=lib), want)
+        return want
+
+    patch(ctrl, "_pre_solve", pre_)
+    patch(ctrl, "_post_solve", post_)
+    patch(srb_env, "observe", observe_)
+    return worst
+
+
+@contextlib.contextmanager
+def patched():
+    """A ``patch(obj, name, value)`` whose settings are undone on exit."""
+    saved = []
+
+    def patch(obj, name, value):
+        saved.append((obj, name, getattr(obj, name)))
+        setattr(obj, name, value)
+
+    try:
+        yield patch
+    finally:
+        for obj, name, value in reversed(saved):
+            setattr(obj, name, value)
+
+
+def ctrl_tick_bytes(B: int, h: int) -> dict:
+    """Bytes each tick kernel reads and writes once: float rows, int32 gait
+    rows, one-byte flags (csrc/ctrl_tick.cu's operands)."""
+    f4 = 4 * B
+    return {
+        "srb_observe": f4 * (55 + 24),
+        "ctrl_pre": f4 * (61 + 9) + 2 * B + f4 * (9 + 3 + 5 * 12 + 36 + 4 + 4 * h + 13 + 3 + 3),
+        "ctrl_post": f4 * (155 + 5) + 8 * B + f4 * (4 + 5 * 12),
+    }
+
+
+def kernel_device_ms(fn, reps=50) -> float:
+    """Mean device time of the tick kernel that each ``fn()`` launches
+    (``torch.profiler``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = [ev.time_range.elapsed_us() for ev in prof.events()
+          if ev.device_type == torch.autograd.DeviceType.CUDA and "tick_kernel" in ev.name]
+    check(len(us) == reps, f"the profiler recorded {len(us)} tick kernels of {reps} launched")
+    return sum(us) / reps / 1e3
+
+
+def phase_ctrl_tick(dev, card):
+    """Phase 8b: the controller's tick kernels at B=4096, h=16 and h=10: a
+    Riccati closed loop brought CTRL_WARM_TICKS ticks in through its graph,
+    then CTRL_SHADOW_TICKS ticks run eagerly with the plain functions, each
+    call's kernel beside it on the same CUDA tensors, every output within
+    CTRL_ULPS (the flags and exact fields equal); then at that state each
+    kernel alone (its device time) against its plain function alone (CUDA
+    events), and its bytes against 3.35 TB/s."""
+    out = {}
+    for h in (HORIZON, 10):
+        mpc, robot, gait, cmd, _, state = closed_loop_setup(dev, h=h)
+        loop = srb_env.RolloutLoop(robot, mpc, gait, cmd, CTRL_WARM_TICKS + CTRL_SHADOW_TICKS,
+                                   init_state=state, solver="riccati")
+        for _ in range(CTRL_WARM_TICKS):
+            loop.step()
+        robot, gait, cmd = loop.robot, loop.gait, loop.cmd
+        with patched() as patch:
+            worst = shadow_ctrl_kernels(patch)
+            for t in range(CTRL_WARM_TICKS, CTRL_WARM_TICKS + CTRL_SHADOW_TICKS):
+                loop._tick(loop.buf, solve=ctrl.is_solve_tick(mpc, t))
+        errs = {k: (float(e), b) for k, (e, b) in worst.items()}
+        check({k.split("/")[0] for k in errs} == set(CTRL_KERNELS),
+              f"phase 8b: h={h}: kernels compared {sorted(errs)}")
+        over = {k: e for k, (e, b) in errs.items() if e > b}
+        state, carry, tick = loop.buf.state, loop.buf.carry, loop.buf.tick
+        forces = carry.mpc.contact_forces
+        obs = ctrl_cuda.srb_observe(robot, state)
+        ks, swing_states, *_ = ctrl_cuda.ctrl_pre(robot, mpc, gait, cmd, carry.mpc, obs, tick)
+        calls = {
+            "srb_observe": lambda: srb_env.observe(robot, state),
+            "ctrl_pre": lambda: ctrl._pre_solve(robot, mpc, gait, cmd, carry, obs, tick),
+            "ctrl_post": lambda: ctrl._post_solve(robot, mpc, gait, cmd, carry, ks, swing_states,
+                                                  carry.mpc, forces),
+        }
+        nbytes = ctrl_tick_bytes(B_MAIN, h)
+        rec = {}
+        for name, fn in calls.items():
+            ms = kernel_device_ms(fn)
+            with patched() as patch:
+                patch(ctrl_cuda, "engages", lambda *a: False)
+                plain_ms = cuda_ms(fn, reps=5)
+            bound, by = bound_ms(0.0, nbytes[name])
+            floats = [e for k, (e, b) in errs.items() if k.startswith(name + "/") and b]
+            exact = [e for k, (e, b) in errs.items() if k.startswith(name + "/") and not b]
+            rec[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                             bytes=nbytes[name], max_ulps=max(floats), exact_differ=sum(exact))
+            print(f"phase 8b: {name} h={h} B={B_MAIN}: against the plain function over "
+                  f"{CTRL_SHADOW_TICKS} ticks of the closed loop, worst {max(floats):.2f} ulps "
+                  f"of a field (bar {CTRL_ULPS:g}), {int(sum(exact))} elements of the exact "
+                  f"fields and flags differ; kernel alone {ms * 1e3:.1f} us, plain alone "
+                  f"{plain_ms:.3f} ms ({plain_ms / ms:.0f}x); {nbytes[name] / 1e6:.2f} MB, "
+                  f"bound {bound * 1e3:.2f} us ({by}) [{card}]", flush=True)
+        check(not over, f"phase 8b: h={h}: outside the bars: {over}")
+        out[h] = rec
+        del loop
+    return out
 
 
 def phase_closed_loop(dev, solver, phase):
@@ -956,6 +1190,7 @@ def phase_rollout(dev, card, solver):
 
     torch.cuda.synchronize()
     reset_launches()
+    traced0 = traced_captures()
     t0 = time.perf_counter()
     (state_f, carry_f), m = srb_env.rollout(robot, mpc, gait, cmd, N_TICKS, init_state=state,
                                             solver=solver)
@@ -965,16 +1200,19 @@ def phase_rollout(dev, card, solver):
     n_solves = N_TICKS // PERIOD
     on_path = ("riccati_admm",) if solver == "riccati" else ("invert_spd", "iterate", "condense")
     for name, count in launches.items():
-        check(count == (n_solves if name in on_path else 0),
-              f"rollout {solver}: kernel {name} launched {count} times, expected "
-              f"{n_solves if name in on_path else 0}")
+        want = loop_launches(name, on_path, n_solves)
+        check(count == want,
+              f"rollout {solver}: kernel {name} launched {count} times, expected {want}")
+    ctrl_n, want = dict(ctrl_cuda.LAUNCHES), loop_ctrl_launches(traced_captures() - traced0, True)
+    check(ctrl_n == want, f"rollout {solver}: controller kernels launched {ctrl_n}, expected {want}")
     check(all(tuple(v.shape) == (N_TICKS, B) for v in m.values()), "rollout metric shapes")
     vel_err = m["vel_err"][-BAND_TICKS:].mean(dim=0)
     height, x = state_f.pos[:, 2], state_f.pos[:, 0]
     ok = ((~m["diverged"].any(dim=0)) & (vel_err < 0.15) & (height > 0.34) & (height < 0.42)
           & (x > 2.0))
     share = float(ok.float().mean())
-    counts = ", ".join(f"{k} {launches[k]}" for k in on_path)
+    counts = ", ".join(f"{k} {v}" for k, v in [*((k, launches[k]) for k in on_path),
+                                                *ctrl_n.items()])
     print(f"phase 8: rollout solver={solver} B={B} h={HORIZON} {N_TICKS} ticks in {wall:.1f} s "
           f"(capture included): {int(ok.sum())}/{B} in band ({share:.4f}, bar {BAND_SHARE}); "
           f"kernel launches {counts}; median vel_err {float(vel_err.median()):.4f} m/s, median "
@@ -997,8 +1235,9 @@ def phase_rollout(dev, card, solver):
           f"non-solve tick {replay_tick:.3f} ms; graph of the non-solve tick: {nodes} nodes, "
           f"captured in {capture_s:.2f} s (setup included); device busy {busy:.3f} of two "
           f"periods (profiler on) [{card}]", flush=True)
-    return launches, dict(period_ms=period, solve_tick_ms=solve_tick, replay_tick_ms=replay_tick,
-                          graph_nodes=nodes, busy_share=busy)
+    return {**launches, **ctrl_n}, dict(period_ms=period, solve_tick_ms=solve_tick,
+                                        replay_tick_ms=replay_tick, graph_nodes=nodes,
+                                        busy_share=busy)
 
 
 def phase_estimator(dev, card):
@@ -1200,6 +1439,7 @@ def phase_fullorder_trot(dev, card, part: str):
 
     torch.cuda.synchronize()
     reset_launches()
+    traced0 = traced_captures()
     t0 = time.perf_counter()
     (state, carry), m = fullorder.rollout(*args, FO_TICKS, state0=state0, solver=solver)
     torch.cuda.synchronize()
@@ -1208,14 +1448,17 @@ def phase_fullorder_trot(dev, card, part: str):
     n_solves = FO_TICKS // PERIOD
     on_path = ("riccati_admm",) if solver == "riccati" else ("invert_spd", "iterate", "condense")
     for name, count in launches.items():
-        check(count == (n_solves if name in on_path else 0),
-              f"phase {part}: kernel {name} launched {count} times, expected "
-              f"{n_solves if name in on_path else 0}")
+        want = loop_launches(name, on_path, n_solves)
+        check(count == want,
+              f"phase {part}: kernel {name} launched {count} times, expected {want}")
+    ctrl_n, want = dict(ctrl_cuda.LAUNCHES), loop_ctrl_launches(traced_captures() - traced0, False)
+    check(ctrl_n == want, f"phase {part}: controller kernels launched {ctrl_n}, expected {want}")
     check(all(tuple(v.shape) == (FO_TICKS, B) for v in m.values()), "fullorder metric shapes")
     ok = fullorder_in_band(m, state.pos[:, 0], p["band"])
     share = float(ok.float().mean())
     bar = min(BAND_SHARE, FO_REFERENCE_SHARE[part] - 0.01)
-    counts = ", ".join(f"{k} {launches[k]}" for k in on_path)
+    counts = ", ".join(f"{k} {v}" for k, v in [*((k, launches[k]) for k in on_path),
+                                                *ctrl_n.items()])
     print(f"phase {part}: fullorder.rollout Aliengo h={p['horizon']} {p['gait']} {p['vx']} m/s "
           f"solver={solver} B={B}, {FO_TICKS} ticks in {wall:.1f} s (capture included): "
           f"{int(ok.sum())}/{B} in band ({share:.4f}; bar {bar:.4f} = min({BAND_SHARE}, JAX "
@@ -1238,9 +1481,10 @@ def phase_fullorder_trot(dev, card, part: str):
           f"real-time limit; eager solve tick {solve_tick:.3f} ms, replayed non-solve tick "
           f"{replay_tick:.3f} ms; graph of the non-solve tick: {nodes} nodes, captured in "
           f"{capture_s:.2f} s (setup included) [{card}]", flush=True)
-    return launches, dict(period_ms=period, solve_tick_ms=solve_tick, replay_tick_ms=replay_tick,
-                          ticks_per_s=B * PERIOD / period * 1e3, graph_nodes=nodes,
-                          in_band=share, bar=bar, wall_s=wall)
+    return {**launches, **ctrl_n}, dict(
+        period_ms=period, solve_tick_ms=solve_tick, replay_tick_ms=replay_tick,
+        ticks_per_s=B * PERIOD / period * 1e3, graph_nodes=nodes, in_band=share, bar=bar,
+        wall_s=wall)
 
 
 def phase_fullorder_branches(dev, card):
@@ -2159,17 +2403,17 @@ def phase_batch_viz(dev, card):
     torch.cuda.synchronize()
     reset_launches()
     graph_loop.CAPTURES = 0
-    traced0 = profiling.snapshot()["counters"].get("capture.traced", 0)
+    traced0 = traced_captures()
     t0 = time.perf_counter()
     frames, m = record_batch(BV_B, BV_SECONDS, BV_FRAME_TICKS, BV_VX, device=dev,
                              return_metrics=True)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, captures = kernel_launches(), graph_loop.CAPTURES
-    traced = profiling.snapshot()["counters"].get("capture.traced", 0) - traced0
+    traced = traced_captures() - traced0
     n_solves = BV_TICKS // PERIOD
     for name, count in launches.items():
-        want = n_solves if name in ("invert_spd", "iterate", "condense") else 0
+        want = loop_launches(name, ("invert_spd", "iterate", "condense"), n_solves)
         check(count == want, f"phase 14b: kernel {name} launched {count} times, expected {want}")
     check(captures == 1, f"phase 14b: {captures} graph captures, expected one")
     check(traced == 0, f"phase 14b: {traced} traced graph captures outside a profiler")
@@ -2743,6 +2987,7 @@ def main() -> int:
     for solver in ("riccati", "admm_fast"):
         launches, rollout_times[solver] = phase_rollout(dev, card, solver)
         rollout_launches.update({k: v for k, v in launches.items() if v})
+    ctrl_tick = phase_ctrl_tick(dev, card)
     phase_estimator(dev, card)
     phase_gait_sweep(dev, card)
     t0 = time.perf_counter()
@@ -2819,6 +3064,26 @@ def main() -> int:
                if on_loop else {}),
             "launches_oracle": oracle_launches[name], "launches_oracle_in": oracle_in,
             "max_abs_err": cond_err[name], "err": errs[name], **cond_times[name],
+        })
+    mirrors = {"srb_observe": "env/srb_env.py observe", "ctrl_pre": "control/controller.py "
+               "_pre_solve", "ctrl_post": "control/controller.py _post_solve"}
+    for name in CTRL_KERNELS:
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "pympc_quadruped_tpu_torch/csrc/ctrl_tick.cu", "replaces": None,
+            "mirrors": f"pympc_quadruped_tpu_torch/{mirrors[name]}",
+            "launches": rollout_launches[name],
+            "launches_in": "rollout(solver='admm_fast'), 3000 ticks: the loop's build (graph "
+                           "warm-ups and capture, tape warm-ups and recording); none replayed",
+            **({"launches_fullorder": fo_launches[name],
+                "launches_fullorder_in": FO_LAUNCHES_IN["admm_fast"]}
+               if name != "srb_observe" else {}),
+            "max_abs_err": max(ctrl_tick[h][name]["max_ulps"] for h in ctrl_tick),
+            "err": f"worst float32 ulps of a field's largest magnitude against the plain "
+                   f"function (bar {CTRL_ULPS:g}), {CTRL_SHADOW_TICKS} closed-loop ticks at "
+                   f"B={B_MAIN}, h=16 and h=10",
+            **{f"{k}_h{h}" if h != HORIZON else k: v for h in ctrl_tick
+               for k, v in ctrl_tick[h][name].items()},
         })
     print(json.dumps({"rollout": rollout_times}))
     print(json.dumps({"fullorder": fo_times}))

@@ -55,6 +55,9 @@ SIGNATURES = {
     "condense_max_horizon": ([], _I),
     "condense_occupancy": ([_I, _P], _I),
     "stamp_launch": ([_P, _I, _P, _I, _P, _I, _I, _I, _P], _I),
+    "srb_observe_launch": ([_P] * 3 + [_F, _L, _P], _I),
+    "ctrl_pre_launch": ([_P] * 11 + [_I] * 3 + [_L, _P], _I),
+    "ctrl_post_launch": ([_P] * 9 + [_I] * 2 + [_L, _P], _I),
 }
 
 

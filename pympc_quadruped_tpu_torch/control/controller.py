@@ -28,7 +28,7 @@ from dataclasses import dataclass
 
 import torch
 
-from pympc_quadruped_tpu_torch.control import legctrl, refmpc, swing
+from pympc_quadruped_tpu_torch.control import ctrl_cuda, legctrl, refmpc, swing
 from pympc_quadruped_tpu_torch.models.command import Command
 from pympc_quadruped_tpu_torch.models.gaits import GaitParams
 from pympc_quadruped_tpu_torch.models.mpc import MpcParams
@@ -36,7 +36,7 @@ from pympc_quadruped_tpu_torch.models.robots import RobotParams
 from pympc_quadruped_tpu_torch.ops import gaitsched, kin, srb
 from pympc_quadruped_tpu_torch.ops.qp import admm, admm_fast, cones, ipm, riccati
 from pympc_quadruped_tpu_torch.tree import tree_map
-from pympc_quadruped_tpu_torch.utils import profiling
+from pympc_quadruped_tpu_torch.utils import profiling, tape
 
 DEFAULT_SOLVER = "admm_fast"
 SOLVERS = ("admm_fast", "riccati", "admm", "ipm", "ipm_parity")
@@ -69,8 +69,11 @@ def init_carry(horizon: int = 10, device="cuda") -> ControllerCarry:
 
 
 def _pre_solve(robot, mpc, gait, cmd, carry, obs, tick):
-    """Everything before the solve decision (span ``ctrl.pre``)."""
+    """Everything before the solve decision (span ``ctrl.pre``); on float32
+    CUDA operands one launch of the ``ctrl_pre`` kernel."""
     with profiling.span("ctrl.pre"):
+        if ctrl_cuda.engages(robot, mpc, gait, cmd, carry.mpc, obs, tick):
+            return ctrl_cuda.ctrl_pre(robot, mpc, gait, cmd, carry.mpc, obs, tick)
         ks = kin.compute_kin_state(robot, obs)
         swing_states = gaitsched.swing_state(gait, mpc, tick)
         table = gaitsched.gait_table(gait, mpc, tick)
@@ -142,15 +145,16 @@ def _solve_branch(robot, mpc, cmd, mpc_carry, ks, x_t, vel_des_world, table,
         else:
             U_ws = torch.cat([mpc_carry.qp_primal[:, 12:], mpc_carry.qp_primal[:, -12:]], dim=-1)
             lam_ws = torch.cat([mpc_carry.qp_dual[:, 20:], mpc_carry.qp_dual[:, -20:]], dim=-1)
+            # (U, lam) come back shaped as the warm start.
             if solver == "riccati":
-                U, lam = riccati.solve_batch(
-                    Ad, Bd, x_t, X, table, robot.fz_max, mpc, riccati_cfg,
-                    warm=(U_ws, lam_ws), return_duals=True,
+                U, lam = tape.eager(
+                    _warm_solve, (U_ws, lam_ws), riccati, Ad, Bd, x_t, X, table,
+                    robot.fz_max, mpc, riccati_cfg, warm=(U_ws, lam_ws), return_duals=True,
                 )
             else:
-                U, lam = admm_fast.solve_batch(
-                    H, g, table, robot.fz_max, mpc, admm_fast_cfg,
-                    warm=(U_ws, lam_ws), return_duals=True,
+                U, lam = tape.eager(
+                    _warm_solve, (U_ws, lam_ws), admm_fast, H, g, table, robot.fz_max, mpc,
+                    admm_fast_cfg, warm=(U_ws, lam_ws), return_duals=True,
                 )
             ok_ws = (torch.isfinite(U).all(dim=-1, keepdim=True)
                      & torch.isfinite(lam).all(dim=-1, keepdim=True))
@@ -164,13 +168,28 @@ def _solve_branch(robot, mpc, cmd, mpc_carry, ks, x_t, vel_des_world, table,
     return dataclasses.replace(mpc_carry, contact_forces=forces), forces
 
 
+def _warm_solve(module, *args, **kwargs):
+    """``module.solve_batch(*args, **kwargs)``, looked up at each call.  A
+    loop on a card replays the rest of its solve tick from graphs and calls
+    this eagerly (``utils/tape.py``), so the solver's kernels launch from the
+    host on every solve tick."""
+    return module.solve_batch(*args, **kwargs)
+
+
 def _post_solve(robot, mpc, gait, cmd, carry, ks, swing_states, mpc_carry, forces):
-    """Swing targets and leg torques from the held forces (span ``ctrl.post``)."""
+    """Swing targets and leg torques from the held forces (span
+    ``ctrl.post``); on float32 CUDA operands one launch of the
+    ``ctrl_post`` kernel."""
     with profiling.span("ctrl.post"):
-        swing_carry, pos_t, vel_t = swing.update_swing(
-            robot, mpc, gait, cmd, ks, carry.swing, swing_states
-        )
-        torques = legctrl.leg_torques(robot, ks, forces, swing_states, pos_t, vel_t)
+        if ctrl_cuda.engages(robot, mpc, gait, cmd, ks, carry.swing, swing_states, forces):
+            swing_carry, pos_t, vel_t, torques = ctrl_cuda.ctrl_post(
+                robot, mpc, gait, cmd, ks, carry.swing, swing_states, forces
+            )
+        else:
+            swing_carry, pos_t, vel_t = swing.update_swing(
+                robot, mpc, gait, cmd, ks, carry.swing, swing_states
+            )
+            torques = legctrl.leg_torques(robot, ks, forces, swing_states, pos_t, vel_t)
     out = ControllerOutput(
         torques=torques, contact_forces=forces, swing_states=swing_states,
         pos_targets=pos_t, vel_targets=vel_t, kin=ks,

@@ -321,6 +321,9 @@ class RolloutLoop(GraphLoop):
                  terrain=None, auto_reset=False, estimator=None, sensor_noise=None, key=None,
                  cmd_ramp_ticks=None, substeps=1, tick0=0, solver_cfg=None, traced=True):
         ctrl.check_solver(solver)
+        # The controller's kernels read each parameter's rows in place.
+        robot_b, gait_b, cmd_b = (tree_map(torch.Tensor.contiguous, p)
+                                  for p in (robot_b, gait_b, cmd_b))
         dev = robot_b.mass.device
         B = robot_b.mass.shape[0]
         if model_b is None:

@@ -3,12 +3,20 @@
 JAX runs a rollout as one compiled ``lax.scan`` whose solve runs under a
 scalar ``lax.cond``.  Here a :class:`GraphLoop` holds the loop's static
 tensors (the env state, the full carry, a 0-d int32 device tick and the
-(num_ticks, B) metric rows) and advances one tick at a time: the solve tick
-(the host gate ``controller.is_solve_tick``) runs eagerly, so the solver
-kernels launch, and count, outside any graph; on a CUDA device every other
-tick replays one ``torch.cuda.CUDAGraph`` of the non-solve tick, captured
-once per loop over the static tensors.  On CPU tensors the same tick runs
-eagerly on every tick.
+(num_ticks, B) metric rows) and advances one tick at a time.  On a CUDA
+device every non-solve tick replays one ``torch.cuda.CUDAGraph`` of that
+tick, captured once per loop over the static tensors.  The solve tick (the
+host gate ``controller.is_solve_tick``) runs its warm-started QP solve
+eagerly, so the solver kernels launch, and count, outside any graph; the
+rest of it replays from the graph segments of a :class:`..utils.tape.Tape`
+that the loop records once, beside its graph (a solver with no eager call,
+a parity solver, keeps the whole solve tick eager).  On CPU tensors every
+tick runs eagerly.  On a card the host keeps at most one period queued
+ahead of the card: each solve tick first waits until the card has run the
+previous one, whose period's replays are still queued behind it.  So the
+host enqueues a period while the card runs the one before, and the solve
+tick's spans time the host's own enqueue, not a wait on a launch queue
+filled many periods ahead.
 
 The loop records its spans in :mod:`..utils.profiling`: the tick's layers
 (``tick.controller``, ``tick.plant``, ``tick.rows``) and their children
@@ -33,6 +41,7 @@ import torch
 from pympc_quadruped_tpu_torch.control import controller as ctrl
 from pympc_quadruped_tpu_torch.tree import tree_map
 from pympc_quadruped_tpu_torch.utils import profiling
+from pympc_quadruped_tpu_torch.utils.tape import Tape
 
 
 def _copy_into(dst, src):
@@ -103,7 +112,8 @@ class GraphLoop:
         )
         self.loop_id = profiling.new_loop(device, self.tick0, self.num_ticks)
         self.cuda = torch.device(device).type == "cuda"
-        self.graph = self.traced_graph = None
+        self.graph = self.traced_graph = self.tape = None
+        self._solved = None   # an event after the last solve tick, on a card
         if self.cuda:
             self._capture()
 
@@ -123,7 +133,9 @@ class GraphLoop:
         """Capture the non-solve tick over ``self.buf`` (the plain graph),
         after a warm-up over copies of the buffers (which leaves them as they
         were), its spans counting their kernel nodes; then, for a loop
-        built ``traced`` while profiling is on, the traced graph."""
+        built ``traced`` while profiling is on, the traced graph; then,
+        after a warm-up of the solve tick on the copies, the solve tick's
+        tape."""
         global CAPTURES
         scratch = tree_map(torch.clone, self.buf)
 
@@ -145,19 +157,35 @@ class GraphLoop:
                     self.traced_graph = capture_graph(stamped, warmup=lambda: None,
                                                       pool=self.graph.pool())
                 profiling.count("capture.traced")
+            tape = Tape()
+            with profiling.span("loop.capture"):
+                if tape.warm_up(lambda: self._tick(scratch, solve=True)):
+                    tape.record(lambda: self._tick(self.buf, solve=True),
+                                pool=self.graph.pool())
+                    self.tape = tape
 
     def step(self) -> None:
-        """Advance one tick: the solve tick eagerly, any other by replay
-        (of the traced graph while a ``torch.profiler`` records)."""
+        """Advance one tick: the solve tick eagerly (on a card, its tape
+        around the eager solve, once the card has run the previous solve
+        tick), any other by replay (of the traced graph while a
+        ``torch.profiler`` records)."""
         tick = self.next_tick
         if tick >= self.tick0 + self.num_ticks:
             raise IndexError(f"the loop was sized for {self.num_ticks} ticks")
         solve = ctrl.is_solve_tick(self.mpc, tick)
         period = tick - tick % self.mpc.iterations_between_mpc
+        if solve and self._solved is not None:
+            self._solved.synchronize()
         with profiling.tick(self.loop_id, period, events=solve and self.cuda) as traced:
             if solve:
                 with profiling.solve_tick(self.cuda):
-                    self._tick(self.buf, solve=True)
+                    if self.tape is not None:
+                        self.tape.play()
+                    else:
+                        self._tick(self.buf, solve=True)
+                if self.cuda:
+                    self._solved = torch.cuda.Event()
+                    self._solved.record()
             elif self.graph is not None:
                 graph = self.graph
                 if traced and self.traced_graph is not None:

@@ -25,6 +25,7 @@ from dataclasses import dataclass
 import torch
 
 from pympc_quadruped_tpu_torch.control import controller as ctrl
+from pympc_quadruped_tpu_torch.control import ctrl_cuda
 from pympc_quadruped_tpu_torch.env import terrain as terrain_lib
 from pympc_quadruped_tpu_torch.env.graph_loop import GraphLoop
 from pympc_quadruped_tpu_torch.estimation import kf
@@ -72,7 +73,10 @@ def default_init_state(robot: RobotParams) -> SrbState:
 
 def observe(robot: RobotParams, state: SrbState) -> kin.RobotObs:
     """Synthesize the controller's observation from SRB state via IK:
-    J qdot = R^T (v_foot - v_base) - omega_b x p_bf."""
+    J qdot = R^T (v_foot - v_base) - omega_b x p_bf.  On float32 CUDA
+    operands one launch of the ``srb_observe`` kernel."""
+    if ctrl_cuda.engages(robot, state):
+        return ctrl_cuda.srb_observe(robot, state)
     R = lie.quat_to_rotmat(state.quat)
     p_bf = (state.foot_pos - state.pos[..., None, :]) @ R
     q_legs = kin.leg_inverse_kinematics(robot, p_bf)
@@ -307,6 +311,8 @@ class RolloutLoop(GraphLoop):
         ctrl.check_solver(solver)
         if contact_source not in ("plan", "measured"):
             raise ValueError(f"unknown contact_source {contact_source!r}")
+        # The controller's kernels read each parameter's rows in place.
+        robot, gait, cmd = (tree_map(torch.Tensor.contiguous, p) for p in (robot, gait, cmd))
         dev = robot.mass.device
         B = robot.mass.shape[0]
         if init_state is None:

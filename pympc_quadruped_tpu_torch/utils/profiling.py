@@ -24,7 +24,10 @@ synchronising.  On a stretch the host holds back, that device time includes
 the card's wait for the host's launches: what the part costs the period.
 While :class:`..env.graph_loop.GraphLoop` captures its non-solve tick, a
 span counts the kernel nodes it adds to the graph instead; during the
-capture's warm-up calls it does nothing.  Samples go into rings of the
+capture's warm-up calls it does nothing.  While the loop records its solve
+tick's tape (:mod:`.tape`), a span marks its entry and exit on the tape
+(:func:`taping`), and each play of the tape opens and closes the span
+there, so the solve tick's spans record as an eager tick's do.  Samples go into rings of the
 newest :data:`RING` per span name, in memory, and outlive the loop that
 made them.  A span with no loop's tick current, such as the sweep's
 (``launch.join``, ``mesh.reduce``, ``ckpt.*`` in :mod:`..parallel`),
@@ -164,8 +167,9 @@ SYNC_WARNING = "called a synchronizing CUDA operation"
 
 # What a span does: record a sample (and, on an eager tick on a card, a pair
 # of events), nothing (a capture's warm-up calls), count the kernel nodes it
-# adds to the graph being captured, or launch a stamp kernel at its ends.
-_RECORD, _QUIET, _COUNT, _STAMP = range(4)
+# adds to the graph being captured, launch a stamp kernel at its ends, or
+# mark its ends on the tape being recorded (utils/tape.py).
+_RECORD, _QUIET, _COUNT, _STAMP, _TAPE = range(5)
 # A sample: [loop, period, start_ns, host_ns, self_ns, parent, device_ms].
 _DEVICE_MS = 6
 
@@ -197,6 +201,27 @@ def _node_types(graph: ctypes.c_void_p, kinds: dict | None = None) -> list[int]:
 _NODE_NAMES = {0: "kernel", 1: "memcpy", 2: "memset"}
 
 
+def _capturing() -> ctypes.c_void_p:
+    """The graph the current stream is capturing into
+    (``cuStreamGetCaptureInfo_v2``)."""
+    status, graph = ctypes.c_int(0), ctypes.c_void_p()
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    rc = _libcuda().cuStreamGetCaptureInfo_v2(stream, ctypes.byref(status), None,
+                                              ctypes.byref(graph), None, None)
+    if rc != 0 or status.value != 1:   # CU_STREAM_CAPTURE_STATUS_ACTIVE
+        raise RuntimeError("profiling: the current stream is not capturing a graph")
+    return graph
+
+
+def capture_nodes() -> int:
+    """Nodes of every type in the graph the current stream is capturing
+    into."""
+    n = ctypes.c_size_t(0)
+    if _libcuda().cuGraphGetNodes(_capturing(), None, ctypes.byref(n)) != 0:
+        raise RuntimeError("profiling: cuGraphGetNodes failed")
+    return n.value
+
+
 def graph_nodes(graph: "torch.cuda.CUDAGraph") -> dict:
     """Node counts by type (``kernel``, ``memcpy``, ``memset``, else
     ``type<n>``) of a graph captured with ``keep_graph=True``."""
@@ -222,15 +247,8 @@ class _Loop:
         self._kinds = {}     # graph node -> its CUgraphNodeType
 
     def kernel_nodes(self) -> int:
-        """Kernel nodes of the graph the current stream is capturing into
-        (``cuStreamGetCaptureInfo_v2``)."""
-        status, graph = ctypes.c_int(0), ctypes.c_void_p()
-        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-        rc = _libcuda().cuStreamGetCaptureInfo_v2(stream, ctypes.byref(status), None,
-                                                  ctypes.byref(graph), None, None)
-        if rc != 0 or status.value != 1:   # CU_STREAM_CAPTURE_STATUS_ACTIVE
-            raise RuntimeError("profiling: the current stream is not capturing a graph")
-        return _node_types(graph, self._kinds).count(0)   # CU_GRAPH_NODE_TYPE_KERNEL
+        """Kernel nodes of the graph the current stream is capturing into."""
+        return _node_types(_capturing(), self._kinds).count(0)   # CU_GRAPH_NODE_TYPE_KERNEL
 
     def stamp(self) -> int:
         """Launch the stamp kernel at the next slot on the current stream;
@@ -296,6 +314,9 @@ class _Span:
         self.mode = mode = r.mode
         if mode == _QUIET:
             return self
+        if mode == _TAPE:
+            r.capture.mark(True, self.name)
+            return self
         stack = r.stack
         self.parent = stack[-1].name if stack and stack[-1].mode == mode else None
         stack.append(self)
@@ -318,6 +339,9 @@ class _Span:
         if mode == _QUIET:
             return False
         r = _R
+        if mode == _TAPE:
+            r.capture.mark(False, self.name)
+            return False
         stack = r.stack
         stack.pop()
         if mode == _COUNT:
@@ -496,6 +520,12 @@ def prepare_stamps(loop: int, tick: torch.Tensor) -> bool:
     if rc != 0:
         raise RuntimeError(f"stamp launch failed: CUDA error {rc}")
     return True
+
+
+def taping(tape):
+    """While ``tape`` (a :class:`..tape.Tape`) records a tick: each span
+    marks its entry and exit on it instead of recording."""
+    return _mode(_TAPE, tape)
 
 
 def emit_stamps(loop: int):

@@ -58,6 +58,7 @@ def test_digest_follows_the_included_headers(csrc, edited, rebuilds):
     ("admm.cu", ["admm.cuh"]), ("admm_iterate.cu", ["admm.cuh"]),
     ("admm_fused.cu", ["admm.cuh"]), ("condense.cu", ["condense.cuh"]),
     ("riccati_admm.cu", ["riccati_admm.cuh"]), ("stamp.cu", []), ("qp_oracle.cc", []),
+    ("ctrl_tick.cu", ["ctrl_tick.cuh"]), ("ctrl_tick_host.cpp", ["ctrl_tick.cuh"]),
 ])
 def test_each_library_hashes_only_its_own_headers(source, headers):
     assert [h.name for h in _build._headers(_build.CSRC / source)] == headers

@@ -19,8 +19,12 @@ from chip_smoke import (B_MAIN, CONE_SHARE, INV_RATIO_BAR, NAN_BACKENDS, PARITY_
                         invariants_ok, inverse_residual, nan_isolation, parity_routes,
                         phase_oracle_certificate, plain_condense, qp_invariants, random_problem,
                         trot_qp_inputs)
+from test_torch_ctrl_tick import (CLOSED_LOOPS, assert_lockstep, assert_loops_close,
+                                  closed_loop, shadow_kernels)
+
 from pympc_quadruped_tpu_torch import tree
 from pympc_quadruped_tpu_torch.control import controller as ctrl
+from pympc_quadruped_tpu_torch.control import ctrl_cuda
 from pympc_quadruped_tpu_torch.control import refmpc
 from pympc_quadruped_tpu_torch.env import fullorder, graph_loop, srb_env, terrain
 from pympc_quadruped_tpu_torch.estimation import kf
@@ -199,13 +203,30 @@ def _assert_bitwise(a, b):
     tree.tree_map(lambda x, y: torch.testing.assert_close(x, y, rtol=0, atol=0), a, b)
 
 
+_ON_PATH = {"riccati": ("riccati_admm",), "admm_fast": ("invert_spd", "iterate", "condense")}
+
+
+def _loop_launches(solver, solves):
+    """Each kernel's host launches by a loop built on the card and run for
+    ``solves`` solve ticks: the solver's once a solve tick (the tape's eager
+    solve); the condensing kernel, which builds the QP inside the tape's
+    graphs, three times at the build (the tape's two warm-up ticks and its
+    recording)."""
+    out = {k: 0 for k in ("riccati_admm", *admm_cuda.LAUNCHES)}
+    for k in _ON_PATH[solver]:
+        out[k] = 3 if k == "condense" else solves
+    return out
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("solver", ["riccati", "admm_fast"])
 def test_cuda_graph_rollout_equals_eager_run_ticks(cuda_device, solver):
     """60 ticks at B=33: ``rollout`` (non-solve ticks replayed from its
-    captured graph) bit for bit the eager ``loop.run_ticks``, with the
-    solver's kernels launched once per solve tick, by the eager solve
-    ticks only."""
+    captured graph, the solve ticks after the first from its tape around
+    the eager solve) bit for bit the eager ``loop.run_ticks``, with the
+    solver's kernels launched once per solve tick, by the eager solves
+    only; the condensing kernel, part of the tape's graphs, launches from
+    the host at the loop's build only."""
     mpc, robot, gait, cmd, carry, state = closed_loop_setup(cuda_device, B=33)
     carry_e, state_e, _ = run_ticks(robot, mpc, gait, cmd, carry, state, 0, 60, solver)
     before = {"riccati_admm": riccati_cuda.LAUNCHES, **admm_cuda.LAUNCHES}
@@ -213,8 +234,7 @@ def test_cuda_graph_rollout_equals_eager_run_ticks(cuda_device, solver):
                                                   init_state=state, solver=solver)
     torch.cuda.synchronize()
     after = {"riccati_admm": riccati_cuda.LAUNCHES, **admm_cuda.LAUNCHES}
-    on_path = ("riccati_admm",) if solver == "riccati" else ("invert_spd", "iterate", "condense")
-    assert {k: after[k] - before[k] for k in after} == {k: 3 * (k in on_path) for k in after}
+    assert {k: after[k] - before[k] for k in after} == _loop_launches(solver, 3)
     _assert_bitwise((state_g, carry_g), (state_e, carry_e))
     assert not bool(metrics["diverged"].any())
 
@@ -274,8 +294,9 @@ def test_cuda_fullorder_graph_equals_eager(cuda_device, part, solver):
                                                    state0=state0, solver=solver)
     torch.cuda.synchronize()
     after = {"riccati_admm": riccati_cuda.LAUNCHES, **admm_cuda.LAUNCHES}
-    on_path = ("riccati_admm",) if solver == "riccati" else ("invert_spd", "iterate", "condense")
-    assert {k: after[k] - before[k] for k in after} == {k: 10 * (k in on_path) for k in after}
+    graph, built = _loop_launches(solver, 5), _loop_launches(solver, 0)
+    eager = {k: built[k] + 5 * (k in _ON_PATH[solver]) for k in after}
+    assert {k: after[k] - before[k] for k in after} == {k: graph[k] + eager[k] for k in after}
     _assert_bitwise(g, e)
     for k in m_g:
         _assert_bitwise(m_g[k], m_e[k])
@@ -478,8 +499,10 @@ def test_cuda_traced_graph_equals_plain_graph(cuda_device, plant, solver):
 
 @pytest.mark.cuda
 def test_cuda_solve_syncs_count_an_added_item(cuda_device, monkeypatch):
-    """``solve.syncs`` per traced solve tick reads one more when
-    ``srb.state_space`` reads a device value on the host."""
+    """``solve.syncs`` per traced solve tick reads one more when the eager
+    solve reads a device value on the host; the same read in
+    ``srb.state_space``, which the tape's graphs replay, fails the tape's
+    recording."""
     mpc, make = _loop_maker(cuda_device, "srb", "riccati", 40)
 
     def syncs_per_tick():
@@ -491,6 +514,15 @@ def test_cuda_solve_syncs_count_an_added_item(cuda_device, monkeypatch):
         return (after["solve.syncs"] - before.get("solve.syncs", 0)) / ticks
 
     base = syncs_per_tick()
+    solve = riccati.solve_batch
+
+    def solve_with_item(Ad, *args, **kwargs):
+        Ad.sum().item()
+        return solve(Ad, *args, **kwargs)
+
+    monkeypatch.setattr(riccati, "solve_batch", solve_with_item)
+    assert syncs_per_tick() == base + 1
+    monkeypatch.setattr(riccati, "solve_batch", solve)
     inner = srb.state_space
 
     def with_item(robot, yaw, pos_base_feet):
@@ -498,7 +530,9 @@ def test_cuda_solve_syncs_count_an_added_item(cuda_device, monkeypatch):
         return inner(robot, yaw, pos_base_feet)
 
     monkeypatch.setattr(srb, "state_space", with_item)
-    assert syncs_per_tick() == base + 1
+    with pytest.raises(RuntimeError):
+        make()
+    torch.cuda.synchronize()
 
 
 @pytest.mark.cuda
@@ -568,3 +602,104 @@ def test_cuda_traced_capture_only_where_traced(cuda_device):
         assert make().traced_graph is None and added() == (4, 2)
     finally:
         profiling.set_enabled(True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plant,solver", CLOSED_LOOPS)
+def test_cuda_ctrl_tick_kernels_in_lockstep_with_the_plain_loop(cuda_device, monkeypatch, plant,
+                                                                 solver):
+    """200 ticks of the plain closed loop at B=256, run eagerly on the card,
+    each tick's kernels (srb_observe, ctrl_pre, ctrl_post) reading the CUDA
+    tensors the plain functions read: every output within the CPU tests'
+    ulps, the exact fields equal (tests/test_torch_ctrl_tick.py)."""
+    loop = closed_loop(plant, solver, cuda_device, 256, 200)
+    worst = shadow_kernels(monkeypatch)
+    for t in range(200):
+        loop._tick(loop.buf, solve=ctrl.is_solve_tick(loop.mpc, t))
+    assert_lockstep(worst, plant)
+
+
+@pytest.mark.cuda
+def test_cuda_ctrl_tick_closed_loop_holds_the_plain_loop(cuda_device, monkeypatch):
+    """The SRB Riccati trot at B=256, 200 ticks through its graph, with the
+    kernels and with the plain functions (their graph captured instead):
+    every state, carry and metric leaf within the CPU test's LOOP_REL."""
+    run = lambda: closed_loop("srb", "riccati", cuda_device, 256, 200)
+
+    def result(loop):
+        for _ in range(200):
+            loop.step()
+        return loop.result(return_full_carry=True)
+
+    kernels = result(run())
+    monkeypatch.setattr(ctrl_cuda, "engages", lambda *a: False)
+    plain = result(run())
+    assert not bool(plain[1]["diverged"].any())
+    assert_loops_close(kernels, plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plant,solver,bound", [("srb", "riccati", 12), ("srb", "admm_fast", 12),
+                                                ("fullorder", "admm_fast", 60)])
+def test_cuda_ctrl_tick_graph_nodes(cuda_device, plant, solver, bound):
+    """The captured graph's ``tick.controller`` holds at most ``bound``
+    kernel nodes (491 SRB, 343 full-order with the plain functions)."""
+    _, make = _loop_maker(cuda_device, plant, solver, 40)
+    loop = make()
+    nodes = profiling.snapshot()["loops"][loop.loop_id]["nodes"]
+    assert nodes["tick.controller"] <= bound, nodes
+
+
+@pytest.mark.cuda
+def test_cuda_ctrl_tick_launches_on_eager_ticks_and_captures_not_replays(cuda_device):
+    """``ctrl_cuda.LAUNCHES``: each kernel once a call of the tick while a
+    loop warms up and captures (the graph's two warm-up calls, its plain and
+    traced captures, the tape's two warm-up calls and its recording), never
+    when a tick replays the graph or plays the tape."""
+    mpc, make = _loop_maker(cuda_device, "srb", "riccati", 60)
+    delta = lambda before: {k: ctrl_cuda.LAUNCHES[k] - before[k] for k in before}
+    before = dict(ctrl_cuda.LAUNCHES)
+    loop = make()
+    built = 3 + (loop.traced_graph is not None) + 3
+    assert loop.tape is not None and delta(before) == {k: built for k in before}
+    before = dict(ctrl_cuda.LAUNCHES)
+    for _ in range(2 * mpc.iterations_between_mpc):
+        loop.step()
+    torch.cuda.synchronize()
+    assert delta(before) == {k: 0 for k in before}
+    (state, _), metrics = loop.result()
+    assert bool(torch.isfinite(state.pos).all()) and not bool(metrics["diverged"][:40].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plant,solver", CLOSED_LOOPS)
+def test_cuda_solve_tick_tape_replays_around_one_eager_solve(cuda_device, plant, solver):
+    """A loop records its solve tick's tape when it is built: graph
+    segments around one eager call (the warm-started solve); each solve
+    tick plays it, and records every span the eager tick records, with a
+    device time."""
+    ticks = 60
+    mpc, make = _loop_maker(cuda_device, plant, solver, ticks)
+    loop = make()
+    tape = loop.tape
+    assert tape is not None
+    calls = [item for item in tape.items if item[0] == "call"]
+    assert len(calls) == 1 and calls[0][1] is ctrl._warm_solve
+    graphs = [item[1] for item in tape.items if item[0] == "graph"]
+    assert graphs and all(profiling.graph_nodes(g).get("kernel", 0) for g in graphs)
+    marks = [item for item in tape.items if item[0] in ("enter", "exit")]
+    assert len(marks) % 2 == 0 and {n for _, n in marks} >= {
+        "tick.controller", "ctrl.pre", "solve.model", "solve.qp", "ctrl.post", "tick.plant",
+        "tick.rows"}
+    for _ in range(ticks):
+        loop.step()
+    torch.cuda.synchronize()
+    snap = profiling.snapshot()
+    for name in ("tick.solve", "tick.controller", "ctrl.pre", "solve.model", "solve.qp",
+                 "ctrl.post", "tick.plant"):
+        cols = snap["spans"][name]
+        mine = cols["loop"] == loop.loop_id
+        assert mine.sum() == 3 and np.isfinite(cols["device_ms"][mine]).all(), name
+    (state, carry), metrics = loop.result()
+    assert bool(torch.isfinite(carry.mpc.contact_forces).all())
+    assert not bool(metrics["diverged"].any())

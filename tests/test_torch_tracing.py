@@ -4,8 +4,13 @@ registry itself (nesting, parents, self time, the rings, ``reset``,
 ``admm_fast`` and ``riccati``, that they change no number of the loop and
 cover every operation of a tick, the profiler's view of them, and the
 benchmark's readers of them (``benchmark/metrics/``), which find nothing to
-read on a CPU record.  The graph-capture half (node counts, the traced
-graph's stamps, sync counting) runs on a card: tests/test_torch_cuda.py."""
+read on a CPU record; and the solve tick's tape (``utils/tape.py``): its
+spans' marks, its eager calls, and its logic with a stand-in for stream
+capture.  The graph-capture half (node counts, the traced graph's stamps,
+sync counting, the tape's real capture) runs on a card:
+tests/test_torch_cuda.py."""
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -18,6 +23,7 @@ from pympc_quadruped_tpu_torch.env import fullorder, srb_env
 from pympc_quadruped_tpu_torch.estimation import kf
 from pympc_quadruped_tpu_torch.models import Command, Gaits, aliengo, default_mpc_params
 from pympc_quadruped_tpu_torch.utils import profiling
+from pympc_quadruped_tpu_torch.utils import tape as tape_lib
 
 PERIOD = 20
 LAYERS = ("tick.controller", "tick.plant", "tick.rows")
@@ -244,3 +250,134 @@ def test_readers_on_a_card_record(monkeypatch):
             "replay_launch_us": 2000.0, "replay_ms.controller": 0.0015, "replay_ms.rows": 0.0002,
             "replay_nodes.controller": 300.0, "replay_nodes.rows": 50.0, "capture_ms": 3.0}
     assert {k: v for k, v in got.items() if v is not None} == pytest.approx(want, rel=1e-12)
+
+
+class _Marks:
+    """A stand-in for a recording tape: the marks the spans leave on it."""
+
+    def __init__(self):
+        self.marks = []
+
+    def mark(self, enter, name):
+        self.marks.append((enter, name))
+
+
+def test_taping_spans_mark_their_ends_and_record_nothing():
+    """While a tape records, each span marks its entry and exit on it, in
+    nesting order, and records no sample."""
+    marks = _Marks()
+    with profiling.taping(marks):
+        with profiling.span("outer"):
+            with profiling.span("inner"):
+                pass
+    assert marks.marks == [(True, "outer"), (True, "inner"), (False, "inner"),
+                           (False, "outer")]
+    assert profiling.snapshot()["spans"] == {}
+
+
+def test_eager_calls_through_outside_a_tape():
+    """Outside a tape ``eager(fn, like, ...)`` is ``fn(...)``, whatever
+    ``like`` holds; inside a tape's warm-up nothing else may warm up."""
+    add = lambda a, b=1: (a + b, (a * b).double())
+    x = torch.arange(6.0).reshape(2, 3)
+    out = tape_lib.eager(add, (x, x), x, b=2)
+    assert torch.equal(out[0], x + 2) and torch.equal(out[1], (2 * x).double())
+    t = tape_lib.Tape()
+    with t._active("warm"):
+        got = tape_lib.eager(add, (x, x.double()), x, b=2)
+        with pytest.raises(RuntimeError, match="another tape"):
+            with tape_lib.Tape()._active("warm"):
+                pass
+    assert [g.shape for g in got] == [x.shape, x.shape] and got[1].dtype == torch.float64
+    assert not any(bool(g.any()) for g in got) and t._holes == 1 and t.items == []
+
+
+@pytest.mark.parametrize("plant,solver", [("srb", "riccati"), ("fullorder", "admm_fast")])
+def test_a_loop_on_the_cpu_runs_every_solve_tick_eagerly(plant, solver):
+    """Taping is for a loop on a card: on the CPU no tick is taped, and the
+    solve tick's spans are recorded by the eager tick as before."""
+    loop = _loop(plant, solver, ticks=40)
+    for _ in range(40):
+        loop.step()
+    assert loop.tape is None
+    names = set(profiling.snapshot()["spans"])
+    assert TICK_SPANS <= names
+
+
+class _FakeGraph:
+    """A stand-in for ``torch.cuda.CUDAGraph`` on the CPU: while it
+    captures, :func:`_launch` appends each kernel to it; a replay runs them."""
+
+    capturing = None
+
+    def __init__(self, keep_graph=False):
+        self.ops = []
+
+    def capture_begin(self, pool=None):
+        _FakeGraph.capturing = self
+
+    def capture_end(self):
+        _FakeGraph.capturing = None
+
+    def instantiate(self):
+        pass
+
+    def replay(self):
+        for op in self.ops:
+            op()
+
+
+def _launch(op):
+    """A kernel launch: run now, or recorded into the graph being captured."""
+    if _FakeGraph.capturing is None:
+        op()
+    else:
+        _FakeGraph.capturing.ops.append(op)
+
+
+class _FakeStream:
+    def wait_stream(self, other):
+        pass
+
+
+def test_a_tape_splits_at_its_spans_and_holes_and_plays_them_in_order(monkeypatch):
+    """The tape's logic with a stand-in for stream capture: recording splits
+    the tick at each span boundary and eager call, drops empty segments,
+    and runs nothing; a play replays the segments in order, calls the
+    eager function on what the segment before it left, copies its result
+    where the later segments read it, and records the spans as an eager
+    tick does."""
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", _FakeGraph)
+    monkeypatch.setattr(torch.cuda, "Stream", _FakeStream)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda *a: _FakeStream())
+    monkeypatch.setattr(torch.cuda, "stream", lambda s: contextlib.nullcontext())
+    monkeypatch.setattr(profiling, "capture_nodes", lambda: len(_FakeGraph.capturing.ops))
+    x, tmp, y = torch.zeros(2), torch.zeros(2), torch.zeros(2)
+    calls = []
+
+    def solve(t):
+        calls.append(t.clone())
+        return (10.0 * t,)
+
+    def tick():
+        with profiling.span("outer"):
+            _launch(lambda: x.add_(1.0))
+            with profiling.span("inner"):
+                _launch(lambda: tmp.copy_(x + 1.0))
+            (u,) = tape_lib.eager(solve, (tmp,), tmp)
+            _launch(lambda: y.copy_(u + x))
+
+    t = tape_lib.Tape()
+    assert t.warm_up(tick) and not calls
+    x.zero_(), tmp.zero_(), y.zero_()
+    t.record(tick, pool=None)
+    assert not calls and not x.any()
+    assert [item[0] if item[0] in ("graph", "call") else item for item in t.items] == [
+        ("enter", "outer"), "graph", ("enter", "inner"), "graph", ("exit", "inner"), "call",
+        "graph", ("exit", "outer")]
+    for k in (1, 2):
+        t.play()
+        assert torch.equal(calls[-1], torch.full((2,), k + 1.0))
+        assert torch.equal(y, torch.full((2,), 10.0 * (k + 1) + k))
+    cols = profiling.snapshot()["spans"]
+    assert len(cols["outer"]["host_ns"]) == 2 and cols["inner"]["parent"] == ["outer"] * 2
